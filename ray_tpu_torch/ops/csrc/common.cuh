@@ -1,0 +1,52 @@
+// Shared helpers for the hand-written Hopper kernels of ray_tpu_torch.
+//
+// Every kernel is templated on its storage type T (float or
+// __nv_bfloat16) and computes in float32. Each C entry point takes a
+// dtype code (DTYPE_F32 / DTYPE_BF16), raw device pointers and the CUDA
+// stream, and returns cudaGetLastError() so the Python wrapper can raise
+// on a refused launch.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define NEG_INF_F (-1e30f)  // finite sentinel: lse merges take exp(lse - max)
+
+enum { DTYPE_F32 = 0, DTYPE_BF16 = 1 };
+
+template <typename T>
+__device__ __forceinline__ float to_f32(T x);
+template <>
+__device__ __forceinline__ float to_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// Reductions over the `width` lanes of a lane group (width a power of two
+// dividing 32); every lane of the group gets the result.
+template <int width>
+__device__ __forceinline__ float group_sum(float x) {
+#pragma unroll
+  for (int off = width / 2; off > 0; off >>= 1)
+    x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+template <int width>
+__device__ __forceinline__ float group_max(float x) {
+#pragma unroll
+  for (int off = width / 2; off > 0; off >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}

@@ -88,6 +88,9 @@ def pytest_configure(config):
         "the single-process engine, zero steady-state control RPCs, "
         "bubble accounting, stage gang placement) tests + the stage-rank "
         "kill drill in tests/test_chaos.py")
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card (ray_tpu_torch kernels against "
+        "their plain versions); skips in the test body where none is present")
 
 
 @pytest.fixture

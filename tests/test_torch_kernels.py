@@ -1,0 +1,149 @@
+"""ray_tpu_torch's CUDA kernels against their plain PyTorch versions.
+
+This file imports neither JAX nor ray_tpu, so it also runs on a machine
+with a card and no JAX (there without the repo's conftest):
+
+    python -m pytest --noconftest -m gpu tests/test_torch_kernels.py
+
+Tests marked ``gpu`` decide in their body whether a card is present and
+skip without one. Tolerances: float32 1e-5 (summation order only);
+bfloat16 2e-2 + 1e-2*|plain| (outputs rounded once to bf16 on both sides,
+float32 accumulators); lse 1e-3 absolute (float32 on both sides).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from ray_tpu_torch.ops import _build
+from ray_tpu_torch.ops import flash_attention as t_flash
+from ray_tpu_torch.ops import paged_attention as t_paged
+
+F32 = dict(rtol=1e-5, atol=1e-5)
+BF16 = dict(rtol=1e-2, atol=2e-2)
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+
+
+def _close(got, want, **tol):
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **tol)
+
+
+def _decode_inputs(rng, *, b, hq, hkv, d, page, num_pages, mp, lengths):
+    """A pool holding `lengths` tokens per row, NaN everywhere else, and
+    one query per row."""
+    pool = torch.full((num_pages, hkv, page, 2 * d), float("nan"))
+    bt = torch.from_numpy((rng.permutation(num_pages - 1)[: b * mp] + 1)
+                          .reshape(b, mp).astype(np.int32))
+    lens = torch.tensor(lengths, dtype=torch.int32)
+    k = torch.from_numpy(rng.standard_normal((b, mp * page, hkv, d))
+                         .astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal((b, mp * page, hkv, d))
+                         .astype(np.float32))
+    pos = torch.arange(mp * page).expand(b, -1)
+    t_paged.paged_write(pool, k, v, bt, pos, lens)
+    q = torch.from_numpy(rng.standard_normal((b, hq, d)).astype(np.float32))
+    return q, pool, bt, lens
+
+
+def _qkv(rng, sq, sk, hq, hkv, d, b=2):
+    return tuple(torch.from_numpy(rng.standard_normal(shape)
+                                  .astype(np.float32))
+                 for shape in ((b, sq, hq, d), (b, sk, hkv, d),
+                               (b, sk, hkv, d)))
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    """On CPU tensors the wrappers run the plain versions and launch
+    nothing; the kernel build never starts."""
+    rng = np.random.default_rng(0)
+    q, pool, bt, lens = _decode_inputs(rng, b=2, hq=4, hkv=2, d=16, page=4,
+                                       num_pages=16, mp=4,
+                                       lengths=[3, 16])
+    n_dec = t_paged.paged_attention_decode.launches
+    n_fl = t_flash.flash_attention.launches
+    out = t_paged.paged_attention_decode(q, pool, bt, lens)
+    want = t_paged.paged_attention_decode_plain(q, pool, bt, lens,
+                                                scale=16 ** -0.5)
+    assert torch.equal(out, want) and torch.isfinite(out).all()
+    qf, kf, vf = _qkv(rng, 9, 9, 4, 2, 16)
+    o = t_flash.flash_attention(qf, kf, vf, causal=True)
+    o_p, _ = t_flash.flash_attention_plain(qf, kf, vf, causal=True,
+                                           q_seg=None, kv_seg=None,
+                                           scale=16 ** -0.5)
+    assert torch.equal(o, o_p)
+    assert t_paged.paged_attention_decode.launches == n_dec
+    assert t_flash.flash_attention.launches == n_fl
+
+
+def test_build_check_raises_on_nonzero_codes():
+    with pytest.raises(RuntimeError, match="cudaError 9"):
+        _build.check("paged_decode", 9)
+    _build.check("paged_decode", 0)
+    assert set(_build.SOURCES) == set(_build.SIGNATURES)
+    assert all(name in fns for name, fns in _build.SIGNATURES.items())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_kernel_matches_plain_on_card(dtype):
+    _need_card()
+    rng = np.random.default_rng(8)
+    dt = getattr(torch, dtype)
+    q, pool, bt, lens = _decode_inputs(
+        rng, b=5, hq=8, hkv=2, d=128, page=16, num_pages=64, mp=8,
+        lengths=[0, 1, 16, 17, 128])
+    args = (q.to("cuda", dt), pool.to("cuda", dt), bt.cuda(), lens.cuda())
+    before = t_paged.paged_attention_decode.launches
+    got = t_paged.paged_attention_decode(*args)
+    want = t_paged.paged_attention_decode_plain(*args, scale=128 ** -0.5)
+    torch.cuda.synchronize()
+    assert t_paged.paged_attention_decode.launches == before + 1
+    assert torch.isfinite(got).all() and (got[0] == 0).all()
+    _close(got, want, **(F32 if dtype == "float32" else BF16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["causal", "ctx_segments"])
+def test_flash_kernel_matches_plain_on_card(dtype, case):
+    _need_card()
+    rng = np.random.default_rng(9)
+    dt = getattr(torch, dtype)
+    if case == "causal":
+        q, k, v = _qkv(rng, 100, 130, 8, 2, 128)
+        segs = None
+    else:  # row 0 sees no kv row at all: o = 0, lse = -1e30
+        q, k, v = _qkv(rng, 70, 256, 8, 2, 128)
+        kv_seg = (torch.arange(256)[None] < torch.tensor([[0], [48]])).to(
+            torch.int32)
+        segs = (torch.ones(2, 70, dtype=torch.int32).cuda(), kv_seg.cuda())
+    q, k, v = (x.to("cuda", dt) for x in (q, k, v))
+    causal = case == "causal"
+    before = t_flash.flash_attention.launches
+    o, lse = t_flash.flash_attention(q, k, v, causal=causal,
+                                     segment_ids=segs, return_lse=True)
+    o_p, lse_p = t_flash.flash_attention_plain(
+        q, k, v, causal=causal, q_seg=None if segs is None else segs[0],
+        kv_seg=None if segs is None else segs[1], scale=128 ** -0.5)
+    torch.cuda.synchronize()
+    assert t_flash.flash_attention.launches == before + 1
+    _close(o, o_p, **(F32 if dtype == "float32" else BF16))
+    _close(lse, lse_p, rtol=0, atol=1e-3)
+    if segs is not None:
+        assert (o[0] == 0).all() and (lse[0] == -1e30).all()
+
+
+@pytest.mark.gpu
+def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
+    _need_card()
+    q = torch.zeros(2, 4, 24, device="cuda", dtype=torch.float16)
+    with pytest.raises(TypeError):
+        t_flash.flash_attention(q[None], q[None], q[None], causal=False)
+    q = torch.zeros(1, 8, 2, 48, device="cuda")
+    with pytest.raises(ValueError, match="head dim"):
+        t_flash.flash_attention(q, q, q, causal=False)

@@ -1,0 +1,265 @@
+"""Parity of ray_tpu_torch's attention ops with the JAX package's.
+
+Inputs are made from a seed with numpy and fed to both sides in float32.
+Pallas kernels run as the JAX tests run them on the CPU (interpret mode),
+at their tiny shapes; on the CPU the port runs each kernel's plain
+PyTorch version. Tolerance: 1e-5 absolute and relative (float32, only
+the summation order differs). The CUDA kernels are held against these
+plain versions in tests/test_torch_kernels.py.
+"""
+
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ray_tpu.models import llama as jax_llama
+from ray_tpu.ops import attention as jax_attn
+from ray_tpu.ops import flash_attention as jax_flash
+from ray_tpu.ops import paged_attention as jax_paged
+from ray_tpu_torch.models import config as t_config
+from ray_tpu_torch.ops import attention as t_attn
+from ray_tpu_torch.ops import flash_attention as t_flash
+from ray_tpu_torch.ops import paged_attention as t_paged
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this file runs: the suite runs files in
+    parallel workers, and tiny shapes gain nothing from more."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _close(got, want, **tol):
+    np.testing.assert_allclose(np.asarray(got, np.float32),
+                               np.asarray(want, np.float32), **(tol or TOL))
+
+
+# ----------------------------------------------------------------- config
+def test_config_mirror_equals_jax_configs():
+    assert set(t_config.CONFIGS) == set(jax_llama.CONFIGS)
+    for name, jc in jax_llama.CONFIGS.items():
+        tc = t_config.CONFIGS[name]
+        jf = dataclasses.asdict(jc)
+        tf = dataclasses.asdict(tc)
+        assert set(jf) == set(tf), name
+        for field, jv in jf.items():
+            tv = tf[field]
+            if field in ("dtype", "param_dtype"):
+                assert str(t_config.torch_dtype(tv)) \
+                    == "torch." + jnp.dtype(jv).name, (name, field)
+            else:
+                assert jv == tv, (name, field, jv, tv)
+        assert tc.head_dim_ == jc.head_dim_
+        assert tc.num_params() == jc.num_params()
+        assert tc.active_params() == jc.active_params()
+    assert t_config.get_config("tiny", num_layers=3).num_layers == 3
+
+
+# ------------------------------------------------------------ write/gather
+def _pool_inputs(rng, *, b, hkv, d, page, num_pages, mp, s, starts, lens):
+    perm = rng.permutation(num_pages - 1)[: b * mp] + 1
+    bt = perm.reshape(b, mp).astype(np.int32)
+    k = rng.standard_normal((b, s, hkv, d)).astype(np.float32)
+    v = rng.standard_normal((b, s, hkv, d)).astype(np.float32)
+    pos = (np.asarray(starts)[:, None] + np.arange(s)).astype(np.int32)
+    return bt, k, v, pos, np.asarray(lens, np.int32)
+
+
+def test_paged_write_and_gather_match_jax_with_oob_padding():
+    """Padding columns run past the block table (positions up to
+    start + s - 1 > mp * page): JAX drops those writes, the port sends
+    them to page 0. Pools agree on every page but page 0."""
+    rng = np.random.default_rng(0)
+    b, hkv, d, page, num_pages, mp = 3, 2, 8, 4, 32, 5
+    s = 16
+    bt, k, v, pos, lens = _pool_inputs(
+        rng, b=b, hkv=hkv, d=d, page=page, num_pages=num_pages, mp=mp, s=s,
+        starts=[0, 8, 12], lens=[13, 0, 20])
+    jpool = jax_paged.paged_write(
+        jax_paged.make_kv_pages(hkv, num_pages, page, d, jnp.float32),
+        jnp.asarray(k), jnp.asarray(v), jnp.asarray(bt), jnp.asarray(pos),
+        jnp.asarray(lens))
+    tpool = t_paged.paged_write(
+        t_paged.make_kv_pages(hkv, num_pages, page, d, torch.float32),
+        _t(k), _t(v), _t(bt), _t(pos), _t(lens))
+    np.testing.assert_array_equal(tpool[1:].numpy(), np.asarray(jpool)[1:])
+    jk, jv = jax_paged.gather_kv(jpool, jnp.asarray(bt))
+    tk, tv = t_paged.gather_kv(tpool, _t(bt))
+    np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+
+
+def _filled_pool(rng, *, b, hq, hkv, d, page, num_pages, mp, lengths):
+    """A pool holding `lengths` tokens per row (written by the port's
+    paged_write, itself held to JAX's above) and one query per row."""
+    bt, k, v, pos, lens = _pool_inputs(
+        rng, b=b, hkv=hkv, d=d, page=page, num_pages=num_pages, mp=mp,
+        s=mp * page, starts=[0] * b, lens=lengths)
+    pool = t_paged.paged_write(
+        t_paged.make_kv_pages(hkv, num_pages, page, d, torch.float32),
+        _t(k), _t(v), _t(bt), _t(pos), _t(lens))
+    q = rng.standard_normal((b, hq, d)).astype(np.float32)
+    return pool.numpy(), bt, lens, q
+
+
+# ------------------------------------------------------------------ decode
+@pytest.mark.parametrize("hq,hkv,interpret", [(8, 2, True), (4, 4, None)])
+def test_decode_plain_matches_jax(hq, hkv, interpret):
+    """GQA and MHA, incl. an inactive (length 0) and a full row; the JAX
+    side is the Pallas decode kernel in interpret mode (GQA) or its jnp
+    reference path (MHA)."""
+    rng = np.random.default_rng(2)
+    b, d, page, mp = 4, 32, 4, 8
+    lengths = [1, 13, 0, mp * page]
+    pool, bt, lens, q = _filled_pool(rng, b=b, hq=hq, hkv=hkv, d=d,
+                                     page=page, num_pages=64, mp=mp,
+                                     lengths=lengths)
+    want = np.asarray(jax.jit(functools.partial(
+        jax_paged.paged_attention_decode, interpret=interpret))(
+        jnp.asarray(q), jnp.asarray(pool), jnp.asarray(bt),
+        jnp.asarray(lens)))
+    got = t_paged.paged_attention_decode(_t(q), _t(pool), _t(bt), _t(lens))
+    _close(got, want)
+    np.testing.assert_array_equal(got[2].numpy(), 0.0)
+
+
+def test_decode_plain_ignores_nan_outside_live_rows():
+    """A recycled pool may hold NaN past a sequence's length: the plain
+    version (like the kernel) zeroes dead rows before any product."""
+    rng = np.random.default_rng(3)
+    b, hq, hkv, d, page, mp = 3, 4, 2, 16, 4, 4
+    lengths = [5, 0, 9]
+    pool, bt, lens, q = _filled_pool(rng, b=b, hq=hq, hkv=hkv, d=d,
+                                     page=page, num_pages=32, mp=mp,
+                                     lengths=lengths)
+    want = np.array(jax_paged.paged_attention_reference(
+        jnp.asarray(q)[:, None], jnp.asarray(pool), jnp.asarray(bt),
+        jnp.maximum(jnp.asarray(lens) - 1, 0)[:, None]))[:, 0]
+    want[1] = 0.0
+    dirty = pool.copy()
+    for i, n in enumerate(lengths):  # poison every dead row of each table
+        for pos in range(n, mp * page):
+            dirty[bt[i, pos // page], :, pos % page] = np.nan
+    got = t_paged.paged_attention_decode(_t(q), _t(dirty), _t(bt),
+                                         _t(lens))
+    assert torch.isfinite(got).all()
+    _close(got, want)
+
+
+# ------------------------------------------------------------------- flash
+def _qkv(rng, sq, sk, hq=4, hkv=2, d=32, b=2):
+    return (rng.standard_normal((b, sq, hq, d)).astype(np.float32),
+            rng.standard_normal((b, sk, hkv, d)).astype(np.float32),
+            rng.standard_normal((b, sk, hkv, d)).astype(np.float32))
+
+
+@pytest.mark.parametrize("case", ["causal_sq_lt_sk", "unaligned",
+                                  "segment_tuple", "fully_masked_rows"])
+def test_flash_forward_with_lse_matches_jax_kernel(case):
+    rng = np.random.default_rng(4)
+    segs, causal = None, True
+    if case == "causal_sq_lt_sk":
+        q, k, v = _qkv(rng, 20, 45)
+    elif case == "unaligned":
+        q, k, v = _qkv(rng, 37, 37)
+        causal = False
+    elif case == "segment_tuple":
+        q, k, v = _qkv(rng, 24, 70)
+        kv_seg = (np.arange(70)[None] >= np.array([[30], [50]])).astype(
+            np.int32)
+        segs = (kv_seg[:, -24:], kv_seg)
+    else:  # q rows of segment 2 match no kv row: o = 0, lse = -1e30
+        q, k, v = _qkv(rng, 16, 40)
+        causal = False
+        q_seg = np.where(np.arange(16)[None] < 10, 1, 2).repeat(2, 0)
+        segs = (q_seg.astype(np.int32), np.ones((2, 40), np.int32))
+    jo, jl = jax_flash.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        segment_ids=None if segs is None else tuple(map(jnp.asarray, segs)),
+        interpret=True, return_lse=True)
+    to, tl = t_flash.flash_attention(
+        _t(q), _t(k), _t(v), causal=causal,
+        segment_ids=None if segs is None else tuple(map(_t, segs)),
+        return_lse=True)
+    _close(to, jo)
+    _close(tl, jl)
+    if case == "fully_masked_rows":
+        assert (to[:, 10:] == 0).all()
+        assert (tl[:, 10:] == -1e30).all()
+
+
+def test_reference_attention_matches_jax():
+    rng = np.random.default_rng(5)
+    q, k, v = _qkv(rng, 12, 12)
+    segs = np.repeat(np.arange(3, dtype=np.int32), 4)[None].repeat(2, 0)
+    for causal in (True, False):
+        want = jax_attn.reference_attention(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+            segment_ids=jnp.asarray(segs))
+        got = t_attn.reference_attention(_t(q), _t(k), _t(v), causal=causal,
+                                         segment_ids=_t(segs))
+        _close(got, want)
+
+
+# ----------------------------------------------------------------- prefill
+@pytest.mark.parametrize("ctx_lens", [(0, 0), (8, 0), (8, 16)])
+def test_paged_prefill_matches_jax(ctx_lens):
+    """New tokens starting at a page-aligned cached prefix attend to the
+    prefix and themselves; with and without the ctx part."""
+    rng = np.random.default_rng(6)
+    b, hq, hkv, d, page, mp, s_new = 2, 4, 2, 16, 8, 6, 12
+    lengths = [c + s_new for c in ctx_lens]
+    pool, bt, lens, _ = _filled_pool(rng, b=b, hq=hq, hkv=hkv, d=d,
+                                     page=page, num_pages=32, mp=mp,
+                                     lengths=lengths)
+    pos = np.stack([np.arange(c, c + s_new) for c in ctx_lens]).astype(
+        np.int32)
+    q = rng.standard_normal((b, s_new, hq, d)).astype(np.float32)
+    k_all, v_all = (np.asarray(x) for x in jax_paged.gather_kv(
+        jnp.asarray(pool), jnp.asarray(bt)))
+    k_new = np.stack([k_all[i, c:c + s_new] for i, c in enumerate(ctx_lens)])
+    v_new = np.stack([v_all[i, c:c + s_new] for i, c in enumerate(ctx_lens)])
+    jax_prefill = jax.jit(jax_paged.paged_prefill_attention,
+                          static_argnames=("ctx_pages", "impl"))
+    for ctx_pages in ((mp, 0) if max(ctx_lens) == 0 else (mp,)):
+        want = jax_prefill(
+            jnp.asarray(q), jnp.asarray(k_new), jnp.asarray(v_new),
+            jnp.asarray(pool), jnp.asarray(bt), jnp.asarray(pos),
+            jnp.asarray(lens), ctx_pages=ctx_pages, impl="reference")
+        got = t_paged.paged_prefill_attention(
+            _t(q), _t(k_new), _t(v_new), _t(pool), _t(bt), _t(pos),
+            _t(lens), ctx_pages=ctx_pages)
+        _close(got, want)
+    oracle = t_paged.paged_attention_reference(_t(q), _t(pool), _t(bt),
+                                               _t(pos))
+    _close(got, oracle.numpy(), rtol=2e-5, atol=2e-5)
+
+
+def test_merge_attention_matches_jax_and_joint_softmax():
+    rng = np.random.default_rng(7)
+    q, k, v = _qkv(rng, 4, 10, hq=3, hkv=3, d=8)
+    parts = []
+    for lo, hi in ((0, 6), (6, 10)):
+        parts += list(t_flash.flash_attention(
+            _t(q), _t(k[:, lo:hi]), _t(v[:, lo:hi]), causal=False,
+            return_lse=True))
+    got = t_paged.merge_attention(*parts)
+    want = jax_paged.merge_attention(*(jnp.asarray(p.numpy())
+                                       for p in parts))
+    _close(got, want)
+    joint = t_attn.reference_attention(_t(q), _t(k), _t(v), causal=False)
+    _close(got, joint.numpy())
