@@ -18,7 +18,20 @@ Phases (any failure exits non-zero; nothing is caught):
    one profiled prefill wave;
 5. reference: at llama3-8b width with 2 layers in float32, first-prefill
    logits and greedy tokens of the kernel path on the card must match the
-   plain path on the CPU.
+   plain path on the CPU;
+6. training kernels: K2 (forward), K3 (backward dq) and K4 (backward
+   dk/dv) against their plain versions at llama-1b's training shapes
+   (bf16, B 4, S 2048, Hq 32, Hkv 8, D 64, causal), plus a packed-segment
+   case and an sq < sk case, with CUDA-event times of each kernel, its
+   plain version and SDPA (forward, and backward for K3/K4);
+7. trainer: ShardedTrainer on llama-1b at full width and depth (float32
+   params, bf16 compute, remat "nothing", fused loss) takes 6 steps on one
+   batch of 4 x 2048 seeded tokens; the loss must fall and K2/K3/K4 must
+   have launched as many times as the layers need; then one profiled
+   step;
+8. train reference: at llama-1b width with 2 layers in float32, one step
+   on the card and on the CPU's plain path from the same parameters must
+   give the same loss, grad norm and updated parameters.
 Then one JSON line of per-kernel numbers, and as the last line
 {"ok": true, "device": {...}}.
 """
@@ -46,6 +59,26 @@ ATOL_LSE = 1e-3
 # float32 end to end: accumulation order differs between cuBLAS/kernels
 # and the CPU
 ATOL_LOGITS_F32 = 1e-3
+# bf16 gradients (K3, K4): float32 accumulators on both sides; the kernel
+# rounds p and ds to bf16 before their products, as the TPU kernels do,
+# and both sides round the output once: the o tolerance holds (checked
+# against a CPU emulation of the rounding at S 1024, D 64)
+# one float32 training step, card against CPU (phase 8): loss and grad
+# norm differ by summation order only
+RTOL_LOSS_F32 = 1e-5
+RTOL_GNORM_F32 = 1e-4
+# Adam's first moment (0.1 x the clipped gradient), per tensor, relative
+# to the tensor's largest entry: sums over 512 tokens in another order
+RTOL_MU_F32 = 1e-4
+# updated parameters: the first step moves each by lr * (g / (|g| + eps)
+# + wd * p), g the clipped gradient. Where |g| >= NOISY_GRAD (100 eps)
+# that is within ~1e-8 of its value on the other side, so the two agree
+# within ATOL_PARAM_F32. Below it, a gradient entry's float32 noise (sums
+# of hundreds of terms near 1e-3, ~1e-9 after the clip) is comparable to
+# eps = 1e-8 and the step may land anywhere in [-lr, lr]: such entries
+# may differ by up to 2 * lr
+ATOL_PARAM_F32 = 1e-6
+NOISY_GRAD = 1e-6
 
 
 def log(msg: str) -> None:
@@ -203,16 +236,301 @@ def check_kernels(torch, flush):
         bytes=qc.numel() * 2 * 2 + lse.numel() * 4 + live * hkv * d * 2 * 2
         + q_seg.numel() * 4 + kv_seg.numel() * 4,
         flops=4 * hq * sq * d * live)
-    for r in results.values():
+    add_bounds(results)
+    return results
+
+
+def add_bounds(results):
+    """Each kernel's bound: the larger of its bytes over the card's memory
+    rate and its FLOPs over the bf16 tensor-core peak."""
+    for name, r in results.items():
         r["bound_ms"] = 1e3 * max(r["bytes"] / HBM_BYTES_PER_S,
                                   r["flops"] / BF16_FLOPS)
         r["bound_by"] = ("bytes" if r["bytes"] / HBM_BYTES_PER_S
                          >= r["flops"] / BF16_FLOPS else "operations")
-    for name, r in results.items():
         log(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}"
             f" ms, library {r['library_ms']} ms, bound {r['bound_ms']:.4f}"
             f" ms ({r['bound_by']})")
+
+
+def check_training_kernels(torch, flush):
+    """Phase 6: K2, K3 and K4 at llama-1b's training shapes against their
+    plain versions; K3/K4 get the kernels' own lse and delta, so each is
+    checked alone."""
+    from ray_tpu_torch.ops.flash_attention import (
+        attention_delta, flash_attention, flash_attention_plain,
+        flash_bwd_dkv, flash_bwd_dkv_plain, flash_bwd_dq, flash_bwd_dq_plain)
+
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(6)
+    b, s, hq, hkv, d = 4, 2048, 32, 8, 64
+    scale = d ** -0.5
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf16)
+
+    def run(name, sq, sk, segs):
+        # v is a strided view of a fused k|v tensor, as in training
+        q, kv, do = randn(b, sq, hq, d), randn(b, sk, 2 * hkv, d), \
+            randn(b, sq, hq, d)
+        k, v = kv[:, :, :hkv].contiguous(), kv[:, :, hkv:]
+        kw = dict(causal=True, q_seg=None if segs is None else segs[0],
+                  kv_seg=None if segs is None else segs[1], scale=scale)
+        o, lse = flash_attention(q, k, v, causal=True, segment_ids=segs,
+                                 return_lse=True)
+        o_p, lse_p = flash_attention_plain(q, k, v, **kw)
+        delta = attention_delta(o, do)
+        dq = flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+        dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+        dq_p = flash_bwd_dq_plain(q, k, v, do, lse, delta, **kw)
+        dk_p, dv_p = flash_bwd_dkv_plain(q, k, v, do, lse, delta, **kw)
+        torch.cuda.synchronize()
+        errs = {"o": max_err(o, o_p), "lse": max_err(lse, lse_p),
+                "dq": max_err(dq, dq_p), "dk": max_err(dk, dk_p),
+                "dv": max_err(dv, dv_p)}
+        log(f"{name} (B={b} Sq={sq} Sk={sk} Hq={hq} Hkv={hkv} D={d}): "
+            + ", ".join(f"max|{n}| err {e:.3e}" for n, e in errs.items())
+            + f" (tolerance {ATOL_O_BF16} + {RTOL_O_BF16}*|plain|; lse "
+            f"atol {ATOL_LSE})")
+        assert close_bf16(o, o_p) and errs["lse"] <= ATOL_LSE, \
+            f"{name}: K2 disagrees"
+        assert close_bf16(dq, dq_p), f"{name}: K3 disagrees"
+        assert close_bf16(dk, dk_p) and close_bf16(dv, dv_p), \
+            f"{name}: K4 disagrees"
+        for t in (dq, dk, dv):
+            assert torch.isfinite(t).all(), f"{name}: non-finite gradient"
+        return (q, k, v, do, o, lse, delta, kw), errs
+
+    # packed rows (documents of 512, 1024 and 512 tokens, and 2048) and
+    # chunked-prefill-like rows (512 queries at the end of 2048 keys)
+    seg = torch.tensor([0] * 512 + [1] * 1024 + [2] * 512,
+                       dtype=torch.int32, device=dev)
+    segs = torch.stack([seg, seg, torch.zeros_like(seg), seg.flip(0)])
+    run("train kernels, packed segments", s, s, (segs, segs))
+    run("train kernels, sq < sk", 512, s, None)
+    (q, k, v, do, o, lse, delta, kw), errs = run("train kernels, causal",
+                                                 s, s, None)
+
+    # SDPA yardsticks on the same inputs: forward, and the backward of one
+    # call (dq, dk and dv together)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q_t, k_t, v_t = (x.transpose(1, 2).detach().requires_grad_()
+                     for x in (q, k, v))
+    out_t = sdpa(q_t, k_t, v_t, is_causal=True, enable_gqa=True)
+    do_t = do.transpose(1, 2)
+    sdpa_bwd_ms = time_ms(lambda: torch.autograd.grad(
+        out_t, (q_t, k_t, v_t), do_t, retain_graph=True), flush=flush)
+    with torch.no_grad():
+        sdpa_fwd_ms = time_ms(lambda: sdpa(q_t, k_t, v_t, is_causal=True,
+                                           enable_gqa=True), flush=flush)
+    del out_t
+
+    live = b * hq * s * (s + 1) // 2   # (q, k) pairs under the causal mask
+    qb, kb = q.numel() * 2, k.numel() * 2  # bytes of q (= do, o) and k (= v)
+    vec = lse.numel() * 4
+    results = {
+        "flash_fwd_train": dict(
+            max_abs_err=max(errs["o"], errs["lse"]),
+            ms=time_ms(lambda: flash_attention(q, k, v, causal=True,
+                                               return_lse=True),
+                       flush=flush),
+            plain_ms=time_ms(lambda: flash_attention_plain(q, k, v, **kw),
+                             flush=flush),
+            library_ms=sdpa_fwd_ms,
+            bytes=2 * qb + 2 * kb + vec, flops=2 * 2 * d * live),
+        "flash_bwd_dq": dict(
+            max_abs_err=errs["dq"],
+            ms=time_ms(lambda: flash_bwd_dq(q, k, v, do, lse, delta, **kw),
+                       flush=flush),
+            plain_ms=time_ms(lambda: flash_bwd_dq_plain(
+                q, k, v, do, lse, delta, **kw), flush=flush),
+            library_ms=sdpa_bwd_ms,
+            bytes=3 * qb + 2 * kb + 2 * vec, flops=3 * 2 * d * live),
+        "flash_bwd_dkv": dict(
+            max_abs_err=max(errs["dk"], errs["dv"]),
+            ms=time_ms(lambda: flash_bwd_dkv(q, k, v, do, lse, delta, **kw),
+                       flush=flush),
+            plain_ms=time_ms(lambda: flash_bwd_dkv_plain(
+                q, k, v, do, lse, delta, **kw), flush=flush),
+            library_ms=sdpa_bwd_ms,
+            bytes=2 * qb + 4 * kb + 2 * vec, flops=4 * 2 * d * live)}
+    log(f"  SDPA (is_causal, enable_gqa): forward {sdpa_fwd_ms:.4f} ms, "
+        f"backward (dq, dk, dv in one call) {sdpa_bwd_ms:.4f} ms")
+    add_bounds(results)
     return results
+
+
+def run_trainer(torch, reset_counts):
+    """Phase 7: ShardedTrainer on llama-1b (22 layers, H 2048), 6 steps on
+    one batch of 4 x 2048 tokens, then one profiled step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_tpu_torch.models.config import get_config
+    from ray_tpu_torch.models.llama import LlamaModel
+    from ray_tpu_torch.ops.flash_attention import flash_attention
+    from ray_tpu_torch.parallel.train_lib import (ShardedTrainer,
+                                                  default_optimizer)
+
+    cfg = get_config("llama-1b")
+    b, s = 4, 2048
+    t0 = time.perf_counter()
+    with torch.device("meta"):
+        model = LlamaModel(cfg)
+    trainer = ShardedTrainer(model, optimizer=default_optimizer(warmup=1))
+    rng = np.random.default_rng(7)
+    batch = {"input_ids": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (b, s), dtype=np.int32)).cuda()}
+    state = trainer.init(torch.Generator(device="cuda").manual_seed(7),
+                         batch)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in state.params.values())
+    log(f"trainer built (llama-1b: {cfg.num_layers} layers, H "
+        f"{cfg.hidden_size}, {cfg.num_heads}/{cfg.num_kv_heads} heads, D "
+        f"{cfg.head_dim_}, {n_params / 1e9:.3f} B params in "
+        f"{model.param_dtype}, compute {model.dtype}, remat "
+        f"{cfg.remat_policy if cfg.remat else 'off'}, loss chunk "
+        f"{cfg.loss_chunk}) in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()  # the main path's run starts here
+    metrics, step_ms = [], []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = trainer.step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append(m)
+    launches = {"flash_fwd_train": flash_attention.launches,
+                "flash_bwd_dq": flash_attention.dq_launches,
+                "flash_bwd_dkv": flash_attention.dkv_launches}
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(m["loss"]) for m in metrics]
+    gnorms = [float(m["grad_norm"]) for m in metrics]
+    log(f"train: losses {losses}")
+    log(f"train: grad norms {gnorms}")
+    log(f"train: step ms {[round(t, 2) for t in step_ms]}")
+    log(f"train: kernel launches in 6 steps {json.dumps(launches)}")
+    assert all(math.isfinite(x) for x in losses + gnorms), "non-finite loss"
+    assert losses[-1] < losses[0], "the loss did not fall"
+    layers, steps = cfg.num_layers, 6
+    want = {"flash_fwd_train": 2 * layers * steps,  # forward + remat
+            "flash_bwd_dq": layers * steps, "flash_bwd_dkv": layers * steps}
+    assert launches == want, f"launches {launches}, expected {want}"
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = trainer.step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    prof_out = device_summary(prof, wall)
+
+    step = sorted(step_ms[1:])[len(step_ms[1:]) // 2] / 1e3  # median, warm
+    tokens = b * s
+    h, v, l = cfg.hidden_size, cfg.vocab_size, cfg.num_layers
+    matmul_params = cfg.num_params() - v * h - (2 * l + 1) * h
+    live = b * cfg.num_heads * s * (s + 1) // 2
+    attn = 2 * 2 * cfg.head_dim_ * live * l  # one forward's attention FLOPs
+    # model FLOPs (no recompute): 6 N per token and forward + backward
+    # attention (3 forwards' worth)
+    model_flops = 6 * matmul_params * tokens + 3 * attn
+    # the device's work with remat: every matmul's forward twice (the
+    # layers' checkpoints and the fused loss's) but down_proj's, whose
+    # recompute stops before it, plus its backward (2 products); K2 twice,
+    # K3 (3 products) and K4 (4)
+    f = cfg.intermediate_size
+    device_flops = (8 * matmul_params - 2 * h * f * l) * tokens \
+        + 2 * attn + attn * 7 / 2
+    out = {"model": "llama-1b", "layers": l, "params": n_params,
+           "batch": [b, s], "losses": losses, "grad_norms": gnorms,
+           "step_ms": step_ms, "ms_per_step": step * 1e3,
+           "tokens_per_s": tokens / step,
+           "model_tflops_per_step": model_flops / 1e12,
+           "mfu": model_flops / step / BF16_FLOPS,
+           "bound_ms": device_flops / BF16_FLOPS * 1e3,
+           "peak_memory_gib": peak / 2**30, "profiled_step": prof_out,
+           "launches": launches}
+    log(f"train: {out['ms_per_step']:.1f} ms per step (median of steps "
+        f"2-6), {out['tokens_per_s']:.0f} tokens/s, model FLOPs "
+        f"{out['model_tflops_per_step']:.1f} TFLOP per step = "
+        f"{100 * out['mfu']:.1f}% of {BF16_FLOPS / 1e12:.0f} TFLOP/s; "
+        f"bound {out['bound_ms']:.1f} ms (device FLOPs with remat); peak "
+        f"memory {out['peak_memory_gib']:.2f} GiB")
+    log(f"train: profiled step {prof_out['profiled_wall_ms']:.1f} ms wall, "
+        f"device busy {prof_out['device_busy_ms']:.1f} ms "
+        f"({100 * prof_out['device_busy_share']:.1f}%)")
+    log_kernels(prof_out)
+    del trainer, model, state, metrics, m
+    return out
+
+
+def check_train_reference(torch):
+    """Phase 8: one float32 training step at llama-1b width with 2 layers,
+    the kernel path on the card against the plain path on the CPU, from
+    the same parameters and batch."""
+    from ray_tpu_torch.models.config import get_config
+    from ray_tpu_torch.models.convert import init_params
+    from ray_tpu_torch.models.llama import LlamaModel
+    from ray_tpu_torch.parallel.train_lib import (ShardedTrainer,
+                                                  default_optimizer)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config("llama-1b", num_layers=2, dtype="float32",
+                     param_dtype="float32")
+    lr = 1e-3
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    sd = init_params(cfg, gen, "cuda", torch.float32)
+    sd = {"cuda": sd, "cpu": {k: t.cpu() for k, t in sd.items()}}
+    rng = np.random.default_rng(8)
+    batch = {"input_ids": rng.integers(0, cfg.vocab_size, (2, 256),
+                                       dtype=np.int32)}
+    res = {}
+    for dev in ("cuda", "cpu"):
+        with torch.device("meta"):
+            model = LlamaModel(cfg)
+        trainer = ShardedTrainer(model, device=dev, optimizer=(
+            default_optimizer(lr=lr, warmup=0, total_steps=10)))
+        state = trainer.init(None, batch, params=sd.pop(dev))
+        state, m = trainer.step(state, batch)
+        res[dev] = (float(m["loss"]), float(m["grad_norm"]),
+                    {n: p.detach().cpu() for n, p in state.params.items()},
+                    [t.cpu() for t in state.opt_state["mu"]])
+        del trainer, model, state, m
+    (loss_g, gn_g, p_g, mu_g), (loss_c, gn_c, p_c, mu_c) = \
+        res["cuda"], res["cpu"]
+    loss_err = abs(loss_g - loss_c) / abs(loss_c)
+    gn_err = abs(gn_g - gn_c) / abs(gn_c)
+    mu_err = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                 for a, b in zip(mu_g, mu_c))
+    total = noisy = off = 0
+    worst = 0.0
+    for (name, p), mu in zip(p_g.items(), mu_c):
+        diff = (p - p_c[name]).abs()
+        quiet = (mu / 0.1).abs() >= NOISY_GRAD  # mu = (1 - b1) g
+        total += diff.numel()
+        noisy += int((diff > ATOL_PARAM_F32).sum())
+        off += int((diff[quiet] > ATOL_PARAM_F32).sum())
+        worst = max(worst, float(diff.max()))
+    log(f"f32 train step (2 layers, llama-1b width, B 2 x S 256): loss "
+        f"{loss_g:.6f} card vs {loss_c:.6f} CPU (rel err {loss_err:.2e}, "
+        f"rtol {RTOL_LOSS_F32}); grad norm {gn_g:.6f} vs {gn_c:.6f} (rel "
+        f"err {gn_err:.2e}, rtol {RTOL_GNORM_F32}); Adam mu rel err "
+        f"{mu_err:.2e} (rtol {RTOL_MU_F32}); params: {noisy} of {total} "
+        f"differ by more than {ATOL_PARAM_F32}, {off} of them where "
+        f"|clipped grad| >= {NOISY_GRAD} (allowed 0); max diff {worst:.3e} "
+        f"(allowed 2*lr = {2 * lr})")
+    assert math.isfinite(loss_g) and loss_err <= RTOL_LOSS_F32, "loss"
+    assert gn_err <= RTOL_GNORM_F32, "grad norm disagrees"
+    assert mu_err <= RTOL_MU_F32, "Adam's first moment disagrees"
+    assert off == 0 and worst <= 2 * lr + ATOL_PARAM_F32, \
+        "updated parameters disagree"
+    return {"loss_rel_err": loss_err, "grad_norm_rel_err": gn_err,
+            "mu_rel_err": mu_err, "param_entries_over_atol": noisy,
+            "param_entries_over_atol_with_grad_over_noise": off,
+            "param_entries": total, "param_max_abs_diff": worst}
 
 
 def serve(engine, requests, late):
@@ -360,22 +678,43 @@ def profile_decode(torch, engine):
     return out
 
 
+# kernel families of a profile, by a substring of the kernel's name (the
+# first that matches): the port's kernels, cuBLAS matmuls, PyTorch's
+# elementwise and reduction kernels, the optimizer's foreach kernels
+FAMILIES = (("port kernels", ("flash_fwd", "bwd_dq", "bwd_dkv",
+                              "paged_decode")),
+            ("matmuls", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
+            ("foreach (optimizer)", ("multi_tensor_apply",)),
+            ("reductions", ("reduce_kernel",)),
+            ("elementwise", ("elementwise", "index", "scatter", "gather",
+                             "cat", "copy")))
+
+
 def device_summary(prof, wall_s):
-    """Device busy time, its share of `wall_s` and the top kernels of a
-    torch.profiler window."""
+    """Device busy time, its share of `wall_s`, the device time of each
+    kernel family and the top kernels of a torch.profiler window."""
     events = [e for e in prof.key_averages()
               if e.device_type.name == "CUDA"]
     busy_us = sum(e.self_device_time_total for e in events)
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    families = {name: 0.0 for name, _ in FAMILIES}
+    families["other"] = 0.0
+    for e in events:
+        family = next((name for name, keys in FAMILIES
+                       if any(k in e.key for k in keys)), "other")
+        families[family] += e.self_device_time_total / 1e3
     return {"profiled_wall_ms": wall_s * 1e3,
             "device_busy_ms": busy_us / 1e3,
             "device_busy_share": busy_us / 1e6 / wall_s,
+            "families_ms": families,
             "top_kernels": [{"name": e.key[:60],
                              "ms": e.self_device_time_total / 1e3,
                              "calls": e.count} for e in top]}
 
 
 def log_kernels(summary):
+    log("  by family: " + ", ".join(
+        f"{name} {ms:.1f} ms" for name, ms in summary["families_ms"].items()))
     for k in summary["top_kernels"]:
         log(f"  {k['ms']:9.3f} ms {k['calls']:6d} calls  {k['name']}")
 
@@ -538,12 +877,37 @@ def main() -> int:
     # 5. reference check
     logits_err = check_reference(torch)
 
+    # 6. training kernels against their plain versions
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
+    kernels.update(check_training_kernels(torch, flush))
+    del flush
+    torch.cuda.empty_cache()
+
+    # 7. the training path: llama-1b, full width and depth
+    def reset_train_counts():
+        flash_attention.launches = 0
+        flash_attention.dq_launches = 0
+        flash_attention.dkv_launches = 0
+
+    train = run_trainer(torch, reset_train_counts)
+    counts.update(train.pop("launches"))
+    torch.cuda.empty_cache()
+
+    # 8. one float32 step, card against CPU
+    train["reference"] = check_train_reference(torch)
+
     sources = {"paged_decode": ("ray_tpu_torch/ops/csrc/paged_decode.cu",
                                 "ray_tpu/ops/paged_attention.py:138"),
                "flash_fwd_self": ("ray_tpu_torch/ops/csrc/flash_fwd.cu",
                                   "ray_tpu/ops/flash_attention.py:66"),
                "flash_fwd_ctx": ("ray_tpu_torch/ops/csrc/flash_fwd.cu",
-                                 "ray_tpu/ops/flash_attention.py:66")}
+                                 "ray_tpu/ops/flash_attention.py:66"),
+               "flash_fwd_train": ("ray_tpu_torch/ops/csrc/flash_fwd.cu",
+                                   "ray_tpu/ops/flash_attention.py:66"),
+               "flash_bwd_dq": ("ray_tpu_torch/ops/csrc/flash_bwd.cu",
+                                "ray_tpu/ops/flash_attention.py:178"),
+               "flash_bwd_dkv": ("ray_tpu_torch/ops/csrc/flash_bwd.cu",
+                                 "ray_tpu/ops/flash_attention.py:228")}
     line = {"kernels": [
         {"name": kname, "route": "cuda", "source": sources[kname][0],
          "replaces": sources[kname][1], "launches": counts[kname],
@@ -555,7 +919,8 @@ def main() -> int:
                    "decode_tok_s": eng["decode_tok_s"],
                    "wall_s": eng["wall_s"], "steady": eng["steady"],
                    "prefill_wave": eng["prefill_wave"],
-                   "f32_logits_max_abs_err": logits_err}}
+                   "f32_logits_max_abs_err": logits_err},
+        "train": train}
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

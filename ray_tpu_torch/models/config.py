@@ -2,9 +2,10 @@
 package's ``models/llama.py`` (``LlamaConfig`` and ``CONFIGS``).
 
 Dtypes are strings (``"bfloat16"``, ``"float32"``) or torch dtypes;
-``torch_dtype`` resolves either form. Training-only fields (remat, the
-fused-loss chunk, MoE) are kept so that the two registries compare equal
-entry by entry, though the serving path of this package reads none of them.
+``torch_dtype`` resolves either form. The training fields (remat and its
+policy, the fused-loss chunk) are read by the training path; the MoE
+fields are kept so that the two registries compare equal entry by entry,
+though MoE layers are not ported yet.
 """
 
 from __future__ import annotations

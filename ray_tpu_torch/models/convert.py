@@ -1,5 +1,6 @@
 """Parameters for ``LlamaModel``: conversion from a Flax tree, a seeded
-on-device init, and model construction from a state dict.
+on-device init, and model construction from a state dict (the serving
+form, or the training form with gradients on).
 
 The Flax tree is the one the JAX package's engine builds
 (``scan_layers=True``): leaves are stacked ``[L, ...]`` under
@@ -60,13 +61,13 @@ def params_from_flax(tree: Mapping, cfg: LlamaConfig) -> Dict[str, torch.Tensor]
 
 
 def init_params(cfg: LlamaConfig, generator: torch.Generator, device,
-                dtype) -> Dict[str, torch.Tensor]:
-    """Seeded random parameters made directly on ``device``, with the Flax
-    init's distributions: normal(0.02) for the embedding, lecun normal
-    (normal truncated at two standard deviations, std sqrt(1/fan_in)
-    before the truncation correction) for every projection, ones for the
-    norm scales (float32)."""
-    dtype = torch_dtype(dtype)
+                param_dtype) -> Dict[str, torch.Tensor]:
+    """Seeded random parameters made directly on ``device`` and stored in
+    ``param_dtype``, with the Flax init's distributions: normal(0.02) for
+    the embedding, lecun normal (normal truncated at two standard
+    deviations, std sqrt(1/fan_in) before the truncation correction) for
+    every projection, ones for the norm scales (float32)."""
+    dtype = torch_dtype(param_dtype)
     h, f, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
     hd, nq, nkv = cfg.head_dim_, cfg.num_heads, cfg.num_kv_heads
 
@@ -97,16 +98,34 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator, device,
     return sd
 
 
-def build_model(cfg: LlamaConfig, state_dict: Mapping[str, torch.Tensor],
-                device, dtype=None) -> LlamaModel:
-    """A LlamaModel on ``device`` holding ``state_dict``'s values: norm
-    scales as float32, every other tensor in ``dtype``. The module is
-    built on the meta device, so no weight is allocated twice."""
-    with torch.device("meta"):
-        model = LlamaModel(cfg, dtype)
+def load_params(model: LlamaModel, state_dict: Mapping[str, torch.Tensor],
+                device) -> LlamaModel:
+    """Place ``state_dict``'s values into ``model`` (built on any device,
+    the meta device included) on ``device``: norm scales as float32,
+    every other tensor in the model's ``param_dtype``."""
     placed = {}
     for name, t in state_dict.items():
-        want = torch.float32 if name.endswith(".scale") else model.dtype
+        want = (torch.float32 if name.endswith(".scale")
+                else model.param_dtype)
         placed[name] = t.to(device=device, dtype=want)
     model.load_state_dict(placed, strict=True, assign=True)
+    return model
+
+
+def build_model(cfg: LlamaConfig, state_dict: Mapping[str, torch.Tensor],
+                device, dtype=None, param_dtype=None,
+                train: bool = False) -> LlamaModel:
+    """A LlamaModel on ``device`` holding ``state_dict``'s values. Weights
+    are stored in ``param_dtype`` (default: ``dtype``, the serving form,
+    where no cast happens at use) and computed in ``dtype`` (default: the
+    config's). The serving form is in eval mode with gradients off; with
+    ``train=True`` the model is in train mode with gradients on. The
+    module is built on the meta device, so no weight is allocated twice."""
+    dtype = torch_dtype(dtype if dtype is not None else cfg.dtype)
+    with torch.device("meta"):
+        model = LlamaModel(cfg, dtype,
+                           param_dtype if param_dtype is not None else dtype)
+    load_params(model, state_dict, device)
+    if train:
+        return model.train().requires_grad_(True)
     return model.eval().requires_grad_(False)

@@ -1,14 +1,23 @@
-"""Llama-family decoder in PyTorch: the serving path of the JAX package's
-``models/llama.py``.
+"""Llama-family decoder in PyTorch: the serving and training paths of the
+JAX package's ``models/llama.py``.
 
-Numerics follow the JAX model: activations in the config's dtype, RMSNorm
-statistics and its scale in float32, rotary angles in float32, fused QKV
-(split q|k|v) and fused gate|up projections. Layers are an
-``nn.ModuleList`` run by a Python loop; with a ``PagedCache`` each layer
-reads and writes its ``[l]`` slice of the ``[L, P, Hkv, page, 2D]`` pool,
-sending one-token steps to the paged decode kernel (K1) and prompts to
-paged prefill (K2, with the cached-prefix merge). Without a cache,
-attention is causal flash attention over the input (K2).
+Numerics follow the JAX model: weights stored in ``param_dtype`` and cast
+to the compute ``dtype`` at use (Flax ``DenseGeneral``), activations in
+``dtype``, RMSNorm statistics and its scale in float32, the embedding
+looked up in ``param_dtype`` and cast after the lookup, rotary angles in
+float32, fused QKV (split q|k|v) and fused gate|up projections. Layers are
+an ``nn.ModuleList`` run by a Python loop; with a ``PagedCache`` each
+layer reads and writes its ``[l]`` slice of the ``[L, P, Hkv, page, 2D]``
+pool, sending one-token steps to the paged decode kernel (K1) and prompts
+to paged prefill (K2, with the cached-prefix merge). Without a cache,
+attention is causal over the input (optionally segment-masked), through
+``ops.attention.attention`` with ``cfg.attention_impl`` (flash attention,
+K2-K4, by default).
+
+Training: with ``cfg.remat`` each layer runs under
+``torch.utils.checkpoint`` with the JAX policies ("nothing", "names",
+"dots"), and ``forward(..., targets=)`` returns the per-position nll of
+the fused chunked cross-entropy instead of logits.
 
 Parameter names are the state-dict keys ``models/convert.py`` produces
 from a Flax tree, e.g. ``layers.0.attn.qkv_proj.weight``.
@@ -17,13 +26,16 @@ from a Flax tree, e.g. ``layers.0.attn.qkv_proj.weight``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
 from torch import nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
-from ..ops.flash_attention import flash_attention
+from ..ops.attention import attention
 from ..ops.paged_attention import (paged_attention_decode,
                                    paged_prefill_attention, paged_write)
 from .config import LlamaConfig, torch_dtype
@@ -72,19 +84,35 @@ class PagedCache:
     ctx_pages: int = 0
 
 
+class Dense(nn.Linear):
+    """A bias-free ``nn.Linear`` whose weight is stored in ``param_dtype``
+    and cast, with its input, to ``dtype`` at use (Flax ``DenseGeneral``;
+    the casts are no-ops when the two types are equal)."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 dtype: torch.dtype, param_dtype: torch.dtype):
+        super().__init__(in_features, out_features, bias=False,
+                         dtype=param_dtype)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x.to(self.compute_dtype),
+                        self.weight.to(self.compute_dtype))
+
+
 class Attention(nn.Module):
-    def __init__(self, cfg: LlamaConfig, dtype: torch.dtype):
+    def __init__(self, cfg: LlamaConfig, dtype: torch.dtype,
+                 param_dtype: torch.dtype):
         super().__init__()
         self.cfg = cfg
         hd, nq, nkv = cfg.head_dim_, cfg.num_heads, cfg.num_kv_heads
-        self.qkv_proj = nn.Linear(cfg.hidden_size, (nq + 2 * nkv) * hd,
-                                  bias=False, dtype=dtype)
-        self.o_proj = nn.Linear(nq * hd, cfg.hidden_size, bias=False,
-                                dtype=dtype)
+        self.qkv_proj = Dense(cfg.hidden_size, (nq + 2 * nkv) * hd, dtype,
+                              param_dtype)
+        self.o_proj = Dense(nq * hd, cfg.hidden_size, dtype, param_dtype)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
-                cache: Optional[PagedCache] = None,
-                layer: int = 0) -> torch.Tensor:
+                cache: Optional[PagedCache] = None, layer: int = 0,
+                segment_ids=None) -> torch.Tensor:
         cfg = self.cfg
         hd, nq, nkv = cfg.head_dim_, cfg.num_heads, cfg.num_kv_heads
         b, s = x.shape[:2]
@@ -106,18 +134,19 @@ class Attention(nn.Module):
                     q, k, v, pages, cache.block_tables, positions,
                     cache.total_lens, ctx_pages=cache.ctx_pages)
         else:
-            out = flash_attention(q, k, v, causal=True)
+            out = attention(q, k, v, causal=True, segment_ids=segment_ids,
+                            impl=cfg.attention_impl)
         return self.o_proj(out.reshape(b, s, nq * hd))
 
 
 class MLP(nn.Module):
-    def __init__(self, cfg: LlamaConfig, dtype: torch.dtype):
+    def __init__(self, cfg: LlamaConfig, dtype: torch.dtype,
+                 param_dtype: torch.dtype):
         super().__init__()
-        self.gate_up_proj = nn.Linear(cfg.hidden_size,
-                                      2 * cfg.intermediate_size,
-                                      bias=False, dtype=dtype)
-        self.down_proj = nn.Linear(cfg.intermediate_size, cfg.hidden_size,
-                                   bias=False, dtype=dtype)
+        self.gate_up_proj = Dense(cfg.hidden_size, 2 * cfg.intermediate_size,
+                                  dtype, param_dtype)
+        self.down_proj = Dense(cfg.intermediate_size, cfg.hidden_size, dtype,
+                               param_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         gate, up = self.gate_up_proj(x).chunk(2, dim=-1)
@@ -125,55 +154,149 @@ class MLP(nn.Module):
 
 
 class DecoderLayer(nn.Module):
-    def __init__(self, cfg: LlamaConfig, dtype: torch.dtype):
+    def __init__(self, cfg: LlamaConfig, dtype: torch.dtype,
+                 param_dtype: torch.dtype):
         super().__init__()
         self.attn_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, dtype)
-        self.attn = Attention(cfg, dtype)
+        self.attn = Attention(cfg, dtype, param_dtype)
         self.mlp_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, dtype)
-        self.mlp = MLP(cfg, dtype)
+        self.mlp = MLP(cfg, dtype, param_dtype)
 
-    def forward(self, x, positions, cache=None, layer: int = 0):
-        x = x + self.attn(self.attn_norm(x), positions, cache, layer)
-        return x + self.mlp(self.mlp_norm(x))
+    def attn_block(self, x, positions, cache=None, layer: int = 0,
+                   segment_ids=None):
+        """The attention branch, ``attn_out`` of the JAX layer."""
+        return self.attn(self.attn_norm(x), positions, cache, layer,
+                         segment_ids)
+
+    def mlp_block(self, x):
+        """The MLP branch, ``mlp_out`` of the JAX layer."""
+        return self.mlp(self.mlp_norm(x))
+
+    def forward(self, x, positions, cache=None, layer: int = 0,
+                segment_ids=None):
+        x = x + self.attn_block(x, positions, cache, layer, segment_ids)
+        return x + self.mlp_block(x)
+
+
+# the projections' matrix products: what jax.checkpoint_policies'
+# dots_with_no_batch_dims_saveable keeps (attention's products carry batch
+# dims, and the kernels' launches are no aten ops)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_layer(layer: DecoderLayer, policy: str, x, positions,
+                segment_ids=None):
+    """One layer under ``torch.utils.checkpoint`` with a JAX remat policy
+    (``_remat_policy``): "nothing" saves only the layer's input; "names"
+    also keeps ``attn_out`` and ``mlp_out``, by checkpointing the two
+    branches apart, so that the input of the MLP branch (x + attn_out) is
+    what is kept and neither branch's output is recomputed for the other;
+    "dots" saves every projection's matmul output (selective
+    checkpointing)."""
+    if policy == "names":
+        x = x + checkpoint(layer.attn_block, x, positions, None, 0,
+                           segment_ids, use_reentrant=False)
+        return x + checkpoint(layer.mlp_block, x, use_reentrant=False)
+    if policy == "dots":
+        return checkpoint(layer, x, positions, None, 0, segment_ids,
+                          use_reentrant=False,
+                          context_fn=functools.partial(
+                              create_selective_checkpoint_contexts,
+                              _save_dots))
+    if policy == "nothing":
+        return checkpoint(layer, x, positions, None, 0, segment_ids,
+                          use_reentrant=False)
+    raise ValueError(f"unknown remat policy {policy!r}")
+
+
+def _chunk_nll(x: torch.Tensor, targets: torch.Tensor,
+               head: torch.Tensor) -> torch.Tensor:
+    logits = F.linear(x, head).float()
+    logp = torch.log_softmax(logits, dim=-1)
+    return -logp.gather(-1, targets[..., None].long())[..., 0]
 
 
 class LlamaModel(nn.Module):
-    """Decoder-only Llama. ``dtype`` is the activation and weight type
-    (default: the config's ``dtype``); norm scales stay float32."""
+    """Decoder-only Llama. ``dtype`` is the compute type (default: the
+    config's ``dtype``) and ``param_dtype`` the type weights are stored in
+    (default: the config's ``param_dtype``); norm scales stay float32."""
 
-    def __init__(self, cfg: LlamaConfig, dtype=None):
+    # the trainer feature-detects the fused chunked-CE `targets=` path
+    supports_fused_loss = True
+
+    def __init__(self, cfg: LlamaConfig, dtype=None, param_dtype=None):
         super().__init__()
         if cfg.num_experts:
             raise NotImplementedError("MoE layers are not ported yet")
         self.cfg = cfg
         self.dtype = torch_dtype(dtype if dtype is not None else cfg.dtype)
+        self.param_dtype = torch_dtype(param_dtype if param_dtype is not None
+                                       else cfg.param_dtype)
         self.embed = nn.Parameter(torch.empty(cfg.vocab_size,
                                               cfg.hidden_size,
-                                              dtype=self.dtype))
-        self.layers = nn.ModuleList(DecoderLayer(cfg, self.dtype)
-                                    for _ in range(cfg.num_layers))
+                                              dtype=self.param_dtype))
+        self.layers = nn.ModuleList(
+            DecoderLayer(cfg, self.dtype, self.param_dtype)
+            for _ in range(cfg.num_layers))
         self.final_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps,
                                   self.dtype)
-        self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size,
-                                 bias=False, dtype=self.dtype)
+        self.lm_head = Dense(cfg.hidden_size, cfg.vocab_size, self.dtype,
+                             self.param_dtype)
 
     def hidden(self, input_ids: torch.Tensor,
                positions: Optional[torch.Tensor] = None,
-               cache: Optional[PagedCache] = None) -> torch.Tensor:
+               cache: Optional[PagedCache] = None,
+               segment_ids=None) -> torch.Tensor:
         """Final-normed hidden states [B, S, H] (before lm_head)."""
         if positions is None:
             positions = torch.arange(input_ids.shape[1],
                                      device=input_ids.device)
             positions = positions.expand(input_ids.shape)
         x = self.embed[input_ids.long()].to(self.dtype)
+        remat = (self.cfg.remat and cache is None
+                 and torch.is_grad_enabled())
         for i, layer in enumerate(self.layers):
-            x = layer(x, positions, cache, i)
+            if remat:
+                x = remat_layer(layer, self.cfg.remat_policy, x, positions,
+                                segment_ids)
+            else:
+                x = layer(x, positions, cache, i, segment_ids)
         return self.final_norm(x)
 
     def forward(self, input_ids: torch.Tensor,
                 positions: Optional[torch.Tensor] = None,
-                cache: Optional[PagedCache] = None) -> torch.Tensor:
-        """Logits [B, S, V]. With a PagedCache, positions must hold the
-        absolute positions of input_ids; the cache's pool is updated in
-        place."""
-        return self.lm_head(self.hidden(input_ids, positions, cache))
+                cache: Optional[PagedCache] = None, *,
+                segment_ids=None,
+                targets: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Logits [B, S, V], or with ``targets`` [B, S] the per-position
+        nll [B, S] (float32) of the fused chunked cross-entropy. With a
+        PagedCache, positions must hold the absolute positions of
+        input_ids; the cache's pool is updated in place. segment_ids
+        (cache-free path only): None, [B, S], or a (q, kv) pair."""
+        x = self.hidden(input_ids, positions, cache, segment_ids)
+        if targets is None:
+            return self.lm_head(x)
+        return self.fused_nll(x, targets)
+
+    def fused_nll(self, x: torch.Tensor,
+                  targets: torch.Tensor) -> torch.Tensor:
+        """Cross-entropy of lm_head(x) against targets, one ``loss_chunk``
+        of positions at a time, each under a checkpoint: a chunk's
+        [B, chunk, V] float32 logits live only while it is projected,
+        reduced and, in the backward, recomputed, so the [B, S, V] logits
+        never exist whole."""
+        head = self.lm_head.weight.to(self.dtype)
+        chunk = min(self.cfg.loss_chunk, x.shape[1])
+        nll = []
+        for xc, tc in zip(x.split(chunk, dim=1), targets.split(chunk, dim=1)):
+            if torch.is_grad_enabled():
+                nll.append(checkpoint(_chunk_nll, xc, tc, head,
+                                      use_reentrant=False))
+            else:
+                nll.append(_chunk_nll(xc, tc, head))
+        return torch.cat(nll, dim=1)

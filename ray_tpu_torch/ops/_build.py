@@ -22,13 +22,15 @@ from typing import Dict
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "_build")
-SOURCES = {"paged_decode": "paged_decode.cu", "flash_fwd": "flash_fwd.cu"}
+SOURCES = {"paged_decode": "paged_decode.cu", "flash_fwd": "flash_fwd.cu",
+           "flash_bwd": "flash_bwd.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_S = ctypes.POINTER(ctypes.c_longlong)
 # argtypes of each library's C entry points (see the sources' extern "C"
 # functions); every one returns int
 SIGNATURES = {
@@ -39,7 +41,13 @@ SIGNATURES = {
     },
     "flash_fwd": {
         "flash_fwd": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                      _I, ctypes.POINTER(ctypes.c_longlong), _I, _F, _P],
+                      _I, _S, _I, _F, _P],
+    },
+    "flash_bwd": {
+        "flash_bwd_dq": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                         _I, _I, _I, _S, _I, _F, _P],
+        "flash_bwd_dkv": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                          _I, _I, _I, _I, _S, _I, _F, _P],
     },
 }
 

@@ -1,7 +1,8 @@
-"""Plain softmax attention in PyTorch: the numerics oracle the kernels and
-the tests are held against. Mirrors the JAX package's ``ops/attention.py``
-(``split_segment_ids``, ``reference_attention``); layouts are the same,
-q ``[B,Sq,Hq,D]`` and k/v ``[B,Sk,Hkv,D]``.
+"""Plain softmax attention in PyTorch, the numerics oracle the kernels and
+the tests are held against, and the attention dispatcher. Mirrors the JAX
+package's ``ops/attention.py`` (``split_segment_ids``,
+``reference_attention``, ``attention``); layouts are the same, q
+``[B,Sq,Hq,D]`` and k/v ``[B,Sk,Hkv,D]``.
 """
 
 from __future__ import annotations
@@ -55,3 +56,29 @@ def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         logits = logits.masked_fill(~seg, NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, segment_ids=None,
+              scale: Optional[float] = None,
+              impl: Optional[str] = None) -> torch.Tensor:
+    """Dispatch to an attention implementation.
+
+    impl: None or "flash" (``flash_attention``: kernels K2-K4 on CUDA
+    tensors, their plain versions on CPU tensors) | "reference"
+    (``reference_attention``) | "ring" | "ulysses" (sequence-parallel
+    attention, not ported: ROADMAP queue 1 item 9).
+    """
+    if impl in ("ring", "ulysses"):
+        raise NotImplementedError(
+            f"attention impl={impl!r} (sequence-parallel attention) is not "
+            f"ported yet: ROADMAP queue 1 item 9")
+    if impl in (None, "flash"):
+        from .flash_attention import flash_attention
+
+        return flash_attention(q, k, v, causal=causal,
+                               segment_ids=segment_ids, scale=scale)
+    if impl == "reference":
+        return reference_attention(q, k, v, causal=causal,
+                                   segment_ids=segment_ids, scale=scale)
+    raise ValueError(f"unknown attention impl {impl!r}")

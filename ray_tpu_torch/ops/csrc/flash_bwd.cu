@@ -1,0 +1,800 @@
+// K3 and K4: the flash-attention backward, dq and dk/dv, from the saved
+// log-sum-exp (FlashAttention-2's recompute of p).
+//
+// Replace the TPU kernels ray_tpu/ops/flash_attention.py::_bwd_dq_kernel
+// (K3, pl.pallas_call in _bwd, "dq") and ::_bwd_dkv_kernel (K4, "dk/dv").
+// Public layout, read through strides like K2 (flash_fwd.cu):
+//   q, do [B, Sq, Hq, D]; k, v [B, Sk, Hkv, D] (last dim contiguous; in
+//   training v is a strided view of the fused QKV output),
+//   lse, delta [B, Sq, Hq] float32 contiguous (lse from K2, delta =
+//   rowsum(do * o)),
+//   dq [B, Sq, Hq, D] in q's type, dk/dv [B, Sk, Hkv, D] in k's type, all
+//   three contiguous.
+// With s = scale * q.k, every live (q, k) pair has
+//   p = exp(s - lse), dp = do.v, ds = p * (dp - delta) * scale,
+//   dq = sum_k ds k,  dk = sum_q ds q,  dv = sum_q p do.
+// The masks are K2's: k_pos < sk, causal k_pos <= q_pos + sk - sq, and the
+// optional q_seg == kv_seg. p is zeroed for a masked pair AFTER the exp is
+// skipped: a fully masked row has lse = -1e30, and exp(-1e30 - lse) would
+// be 1. Rows at or past Sq / Sk are zero-filled, never loaded, and masked.
+//
+// What bounds it on the H100: operations. K3 does 3 and K4 4 products of
+// 2*D FLOPs per live (q, k) pair over O((Sq + Sk) * D) bytes.
+//   - K3: one block per (64-row q tile, q head, batch row), looping over
+//     64-row kv tiles up to the causal limit; dq stays in registers.
+//   - K4: one block per (64-row kv tile, KV head, batch row). It loops
+//     over the Hq / Hkv q heads of its group and, for each, over the q
+//     tiles from the causal start, so dk and dv accumulate for the whole
+//     GQA group in float32 registers: the TPU version's per-q-head f32
+//     partials [B, Hq, Sk, D] and their group sum never touch HBM.
+// Two variants each, chosen by the input type, as in K2: bf16 on the
+// tensor cores (mma.sync m16n8k16, float32 accumulators, 4 warps x 16
+// rows; p and ds go from the accumulators into the next product's A
+// fragments in registers, rounded to bf16 as the TPU kernel rounds them),
+// and an exact scalar-FMA float32 variant (256 threads, 4x4 patches).
+// Not done yet: wgmma and TMA, cp.async double buffering, ldmatrix
+// (transposed tiles are staged by scalar stores), and one fused kernel
+// writing dq by atomics (FlashAttention-2's layout) instead of two passes.
+#include "common.cuh"
+
+namespace {
+
+constexpr int kBQ = 64;       // q rows per tile
+constexpr int kBK = 64;       // kv rows per tile
+constexpr int kThreads = 256;  // scalar variant: a 16 x 16 thread grid
+constexpr int kMmaThreads = 128;
+
+struct BwdParams {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* dout;
+  const float* lse;    // [B, Sq, Hq]
+  const float* delta;  // [B, Sq, Hq]
+  const int* qseg;     // [B, Sq] or null
+  const int* kseg;     // [B, Sk] or null
+  void* dq;            // [B, Sq, Hq, D]
+  void* dk;            // [B, Sk, Hkv, D]
+  void* dv;            // [B, Sk, Hkv, D]
+  int sq, sk, hq, hkv;
+  long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh;
+  long long v_sb, v_ss, v_sh, o_sb, o_ss, o_sh;  // o_*: strides of do
+  int causal;
+  float scale;
+};
+
+// number of kv tiles a q tile starting at q0 reads (K2's causal bound)
+__device__ __forceinline__ int kv_tiles(const BwdParams& p, int q0) {
+  int n = (p.sk + kBK - 1) / kBK;
+  if (p.causal) n = min(n, (q0 + kBQ + (p.sk - p.sq) + kBK - 1) / kBK);
+  return n;
+}
+
+// first q tile whose rows can see a kv tile starting at k0
+__device__ __forceinline__ int first_q_tile(const BwdParams& p, int k0) {
+  return p.causal ? max(k0 - (p.sk - p.sq), 0) / kBQ : 0;
+}
+
+__device__ __forceinline__ bool live(const BwdParams& p, int qpos, int kpos,
+                                     int qs, int ks) {
+  bool keep = qpos < p.sq && kpos < p.sk;
+  if (p.causal) keep = keep && kpos <= qpos + (p.sk - p.sq);
+  if (p.kseg != nullptr) keep = keep && qs == ks;
+  return keep;
+}
+
+__device__ __forceinline__ size_t row_index(const BwdParams& p, int b,
+                                            int qpos, int h) {
+  return ((size_t)b * p.sq + qpos) * p.hq + h;  // into lse / delta
+}
+
+// ---------------------------------------------------------------------
+// float32 variants: scalar FMAs on float32 tiles (padded rows, no bank
+// conflicts on the column walks).
+
+template <int D>
+__global__ void __launch_bounds__(kThreads) bwd_dq_f32(BwdParams p) {
+  constexpr int DS = D + 1, PS = kBK + 1, DC = D / 16;
+  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (p.hq / p.hkv);
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int q0 = qt * kBQ;
+
+  extern __shared__ float smem[];
+  float* q_s = smem;             // [kBQ][DS]
+  float* do_s = q_s + kBQ * DS;  // [kBQ][DS]
+  float* k_s = do_s + kBQ * DS;  // [kBK][DS]
+  float* v_s = k_s + kBK * DS;   // [kBK][DS]
+  float* ds_s = v_s + kBK * DS;  // [kBQ][PS]
+
+  const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* dout =
+      static_cast<const float*>(p.dout) + b * p.o_sb + h * p.o_sh;
+  const float* k = static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const float* v = static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh;
+
+  for (int i = tid; i < kBQ * D; i += kThreads) {
+    const int r = i / D, e = i - r * D;
+    const int qpos = q0 + r;
+    const bool in = qpos < p.sq;
+    q_s[r * DS + e] = in ? q[qpos * p.q_ss + e] : 0.f;
+    do_s[r * DS + e] = in ? dout[qpos * p.o_ss + e] : 0.f;
+  }
+
+  float lse[4], delta[4], acc[4][DC];
+  int qs[4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int qpos = q0 + ty + 16 * a;
+    const bool in = qpos < p.sq;
+    lse[a] = in ? p.lse[row_index(p, b, qpos, h)] : 0.f;
+    delta[a] = in ? p.delta[row_index(p, b, qpos, h)] : 0.f;
+    qs[a] = p.qseg != nullptr ? p.qseg[(size_t)b * p.sq + min(qpos, p.sq - 1)]
+                              : 0;
+#pragma unroll
+    for (int c = 0; c < DC; ++c) acc[a][c] = 0.f;
+  }
+
+  const int n_kb = kv_tiles(p, q0);
+  for (int kb = 0; kb < n_kb; ++kb) {
+    const int k0 = kb * kBK;
+    __syncthreads();  // the previous iteration is done with k_s and ds_s
+    for (int i = tid; i < kBK * D; i += kThreads) {
+      const int r = i / D, e = i - r * D;
+      const int kpos = k0 + r;
+      const bool in = kpos < p.sk;
+      k_s[r * DS + e] = in ? k[kpos * p.k_ss + e] : 0.f;
+      v_s[r * DS + e] = in ? v[kpos * p.v_ss + e] : 0.f;
+    }
+    __syncthreads();
+
+    // S = Q K^T and dP = dO V^T for rows ty + 16a, cols tx + 16c
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[a][c] = dp[a][c] = 0.f;
+#pragma unroll 4
+    for (int e = 0; e < D; ++e) {
+      float qa[4], oa[4], kc[4], vc[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        qa[a] = q_s[(ty + 16 * a) * DS + e];
+        oa[a] = do_s[(ty + 16 * a) * DS + e];
+      }
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        kc[c] = k_s[(tx + 16 * c) * DS + e];
+        vc[c] = v_s[(tx + 16 * c) * DS + e];
+      }
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          s[a][c] = fmaf(qa[a], kc[c], s[a][c]);
+          dp[a][c] = fmaf(oa[a], vc[c], dp[a][c]);
+        }
+    }
+
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int qpos = q0 + ty + 16 * a;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int kpos = k0 + tx + 16 * c;
+        const int ks = p.kseg != nullptr && kpos < p.sk
+                           ? p.kseg[(size_t)b * p.sk + kpos] : 0;
+        const float pr = live(p, qpos, kpos, qs[a], ks)
+                             ? expf(s[a][c] * p.scale - lse[a]) : 0.f;
+        ds_s[(ty + 16 * a) * PS + tx + 16 * c] =
+            pr * (dp[a][c] - delta[a]) * p.scale;
+      }
+    }
+    __syncthreads();
+
+    // dQ += dS K for rows ty + 16a, cols tx + 16c
+#pragma unroll 4
+    for (int j = 0; j < kBK; ++j) {
+      float da[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) da[a] = ds_s[(ty + 16 * a) * PS + j];
+#pragma unroll
+      for (int c = 0; c < DC; ++c) {
+        const float kv = k_s[j * DS + tx + 16 * c];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) acc[a][c] = fmaf(da[a], kv, acc[a][c]);
+      }
+    }
+  }
+
+  float* dq = static_cast<float*>(p.dq);
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int qpos = q0 + ty + 16 * a;
+    if (qpos >= p.sq) continue;
+    float* row = dq + row_index(p, b, qpos, h) * D;
+#pragma unroll
+    for (int c = 0; c < DC; ++c) row[tx + 16 * c] = acc[a][c];
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads) bwd_dkv_f32(BwdParams p) {
+  constexpr int DS = D + 1, PS = kBQ + 1, DC = D / 16;
+  const int kt = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int rep = p.hq / p.hkv;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int k0 = kt * kBK;
+
+  extern __shared__ float smem[];
+  float* k_s = smem;               // [kBK][DS]
+  float* v_s = k_s + kBK * DS;     // [kBK][DS]
+  float* q_s = v_s + kBK * DS;     // [kBQ][DS]
+  float* do_s = q_s + kBQ * DS;    // [kBQ][DS]
+  float* p_s = do_s + kBQ * DS;    // [kBK][PS]: P^T
+  float* ds_s = p_s + kBK * PS;    // [kBK][PS]: dS^T
+  float* lse_s = ds_s + kBK * PS;  // [kBQ]
+  float* delta_s = lse_s + kBQ;    // [kBQ]
+  int* qseg_s = reinterpret_cast<int*>(delta_s + kBQ);  // [kBQ]
+
+  const float* k = static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const float* v = static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh;
+  for (int i = tid; i < kBK * D; i += kThreads) {
+    const int r = i / D, e = i - r * D;
+    const int kpos = k0 + r;
+    const bool in = kpos < p.sk;
+    k_s[r * DS + e] = in ? k[kpos * p.k_ss + e] : 0.f;
+    v_s[r * DS + e] = in ? v[kpos * p.v_ss + e] : 0.f;
+  }
+
+  float dk[4][DC], dv[4][DC];
+  int ks[4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int kpos = k0 + ty + 16 * a;
+    ks[a] = p.kseg != nullptr ? p.kseg[(size_t)b * p.sk + min(kpos, p.sk - 1)]
+                              : 0;
+#pragma unroll
+    for (int c = 0; c < DC; ++c) dk[a][c] = dv[a][c] = 0.f;
+  }
+
+  const int qb0 = first_q_tile(p, k0);
+  const int n_qb = (p.sq + kBQ - 1) / kBQ;
+  for (int r = 0; r < rep; ++r) {
+    const int h = hk * rep + r;
+    const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+    const float* dout =
+        static_cast<const float*>(p.dout) + b * p.o_sb + h * p.o_sh;
+    for (int qb = qb0; qb < n_qb; ++qb) {
+      const int q0 = qb * kBQ;
+      __syncthreads();  // the previous tile is done with q_s ... qseg_s
+      for (int i = tid; i < kBQ * D; i += kThreads) {
+        const int rr = i / D, e = i - rr * D;
+        const int qpos = q0 + rr;
+        const bool in = qpos < p.sq;
+        q_s[rr * DS + e] = in ? q[qpos * p.q_ss + e] : 0.f;
+        do_s[rr * DS + e] = in ? dout[qpos * p.o_ss + e] : 0.f;
+      }
+      if (tid < kBQ) {
+        const int qpos = q0 + tid;
+        const bool in = qpos < p.sq;
+        lse_s[tid] = in ? p.lse[row_index(p, b, qpos, h)] : 0.f;
+        delta_s[tid] = in ? p.delta[row_index(p, b, qpos, h)] : 0.f;
+        qseg_s[tid] = in && p.qseg != nullptr
+                          ? p.qseg[(size_t)b * p.sq + qpos] : 0;
+      }
+      __syncthreads();
+
+      // S^T = K Q^T and dP^T = V dO^T: kv rows ty + 16a, q cols tx + 16c
+      float s[4][4], dp[4][4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[a][c] = dp[a][c] = 0.f;
+#pragma unroll 4
+      for (int e = 0; e < D; ++e) {
+        float ka[4], va[4], qc[4], oc[4];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          ka[a] = k_s[(ty + 16 * a) * DS + e];
+          va[a] = v_s[(ty + 16 * a) * DS + e];
+        }
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          qc[c] = q_s[(tx + 16 * c) * DS + e];
+          oc[c] = do_s[(tx + 16 * c) * DS + e];
+        }
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            s[a][c] = fmaf(ka[a], qc[c], s[a][c]);
+            dp[a][c] = fmaf(va[a], oc[c], dp[a][c]);
+          }
+      }
+
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const int kpos = k0 + ty + 16 * a;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int j = tx + 16 * c;
+          const float pr = live(p, q0 + j, kpos, qseg_s[j], ks[a])
+                               ? expf(s[a][c] * p.scale - lse_s[j]) : 0.f;
+          p_s[(ty + 16 * a) * PS + j] = pr;
+          ds_s[(ty + 16 * a) * PS + j] = pr * (dp[a][c] - delta_s[j]) * p.scale;
+        }
+      }
+      __syncthreads();
+
+      // dV += P^T dO and dK += dS^T Q: rows ty + 16a, cols tx + 16c
+#pragma unroll 4
+      for (int j = 0; j < kBQ; ++j) {
+        float pa[4], da[4];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          pa[a] = p_s[(ty + 16 * a) * PS + j];
+          da[a] = ds_s[(ty + 16 * a) * PS + j];
+        }
+#pragma unroll
+        for (int c = 0; c < DC; ++c) {
+          const float ov = do_s[j * DS + tx + 16 * c];
+          const float qv = q_s[j * DS + tx + 16 * c];
+#pragma unroll
+          for (int a = 0; a < 4; ++a) {
+            dv[a][c] = fmaf(pa[a], ov, dv[a][c]);
+            dk[a][c] = fmaf(da[a], qv, dk[a][c]);
+          }
+        }
+      }
+    }
+  }
+
+  float* dk_out = static_cast<float*>(p.dk);
+  float* dv_out = static_cast<float*>(p.dv);
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int kpos = k0 + ty + 16 * a;
+    if (kpos >= p.sk) continue;
+    const size_t row = (((size_t)b * p.sk + kpos) * p.hkv + hk) * D;
+#pragma unroll
+    for (int c = 0; c < DC; ++c) {
+      dk_out[row + tx + 16 * c] = dk[a][c];
+      dv_out[row + tx + 16 * c] = dv[a][c];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------
+// bf16 variants on the tensor cores. mma.sync m16n8k16 fragment layouts
+// (g = lane / 4, t = lane % 4):
+//   A 16x16 row-major: {A[g][2t..2t+1], A[g+8][2t..], A[g][2t+8..],
+//                       A[g+8][2t+8..]};
+//   B 16x8 "col": {B[2t..2t+1][g], B[2t+8..2t+9][g]} (k pairs per column);
+//   C 16x8: {C[g][2t], C[g][2t+1], C[g+8][2t], C[g+8][2t+1]}.
+// A product whose B runs along the tile's rows (K for dq, dO and Q for
+// dv and dk) reads a transposed copy staged in shared memory.
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo: low half
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// the A fragment of rows row0..row0+15, cols col0..col0+15 of a row-major
+// tile with row stride `stride`
+__device__ __forceinline__ void load_a(uint32_t* a, const bf16* tile,
+                                       int stride, int row0, int col0,
+                                       int g, int t) {
+  const bf16* p = tile + (row0 + g) * stride + col0 + t * 2;
+  a[0] = ld32(p);
+  a[1] = ld32(p + 8 * stride);
+  a[2] = ld32(p + 8);
+  a[3] = ld32(p + 8 * stride + 8);
+}
+
+// the A fragment of k-step `t` of a 16 x 64 accumulator block x[8][4]
+// (rows in C layout), rounded to bf16
+__device__ __forceinline__ void acc_to_a(uint32_t* a, float (*x)[4], int t) {
+  a[0] = pack_bf16(x[2 * t][0], x[2 * t][1]);
+  a[1] = pack_bf16(x[2 * t][2], x[2 * t][3]);
+  a[2] = pack_bf16(x[2 * t + 1][0], x[2 * t + 1][1]);
+  a[3] = pack_bf16(x[2 * t + 1][2], x[2 * t + 1][3]);
+}
+
+// Stage `rows` rows of D bf16 from src (row stride `ss`, rows at or past
+// `limit` zero-filled) row-major into dst [rows][D + 8] and, if dst_t is
+// not null, transposed into dst_t [D][rows + 8]. Consecutive threads take
+// consecutive rows, so the 2-byte transposed stores fall in consecutive
+// shared-memory words.
+template <int D, int rows>
+__device__ __forceinline__ void stage(bf16* dst, bf16* dst_t, const bf16* src,
+                                      long long ss, int first, int limit,
+                                      int tid) {
+  constexpr int V8 = D / 8;
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  for (int i = tid; i < rows * V8; i += kMmaThreads) {
+    const int r = i % rows, c = i / rows;
+    const int pos = first + r;
+    const uint4 val = pos < limit
+        ? *reinterpret_cast<const uint4*>(src + pos * ss + c * 8) : zero;
+    *reinterpret_cast<uint4*>(dst + r * (D + 8) + c * 8) = val;
+    if (dst_t != nullptr) {
+      const bf16* e = reinterpret_cast<const bf16*>(&val);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) dst_t[(c * 8 + j) * (rows + 8) + r] = e[j];
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads) bwd_dq_mma(BwdParams p) {
+  constexpr int QS = D + 8;    // row stride of the row-major tiles
+  constexpr int TS = kBK + 8;  // row stride of the transposed K tile
+  constexpr int KK = D / 16;   // k16 steps over the head dim
+  constexpr int NT = kBK / 8;  // n8 tiles of a 64-wide score row block
+  constexpr int DT = D / 8;    // n8 tiles of the output
+
+  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (p.hq / p.hkv);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, tq = lane & 3;
+  const int q0 = qt * kBQ, r0 = warp * 16;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // [kBQ][QS]
+  bf16* do_s = q_s + kBQ * QS;                    // [kBQ][QS]
+  bf16* k_s = do_s + kBQ * QS;                    // [kBK][QS]
+  bf16* v_s = k_s + kBK * QS;                     // [kBK][QS]
+  bf16* kt_s = v_s + kBK * QS;                    // [D][TS]
+
+  const bf16* q = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const bf16* dout = static_cast<const bf16*>(p.dout) + b * p.o_sb + h * p.o_sh;
+  const bf16* k = static_cast<const bf16*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const bf16* v = static_cast<const bf16*>(p.v) + b * p.v_sb + hk * p.v_sh;
+
+  stage<D, kBQ>(q_s, nullptr, q, p.q_ss, q0, p.sq, tid);
+  stage<D, kBQ>(do_s, nullptr, dout, p.o_ss, q0, p.sq, tid);
+
+  // this thread's two rows: q0 + r0 + g and q0 + r0 + g + 8
+  int qpos[2], qs[2];
+  float lse[2], delta[2];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    qpos[rr] = q0 + r0 + g + 8 * rr;
+    const bool in = qpos[rr] < p.sq;
+    lse[rr] = in ? p.lse[row_index(p, b, qpos[rr], h)] : 0.f;
+    delta[rr] = in ? p.delta[row_index(p, b, qpos[rr], h)] : 0.f;
+    qs[rr] = p.qseg != nullptr
+                 ? p.qseg[(size_t)b * p.sq + min(qpos[rr], p.sq - 1)] : 0;
+  }
+  float acc[DT][4];
+#pragma unroll
+  for (int t = 0; t < DT; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
+
+  const int n_kb = kv_tiles(p, q0);
+  for (int kb = 0; kb < n_kb; ++kb) {
+    const int k0 = kb * kBK;
+    __syncthreads();  // the previous iteration is done with k_s, v_s, kt_s
+    stage<D, kBK>(k_s, kt_s, k, p.k_ss, k0, p.sk, tid);
+    stage<D, kBK>(v_s, nullptr, v, p.v_ss, k0, p.sk, tid);
+    __syncthreads();
+
+    // S = Q K^T and dP = dO V^T: this warp's 16 rows x 64 kv columns
+    float s[NT][4], dp[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk) {
+      uint32_t qa[4], oa[4];
+      load_a(qa, q_s, QS, r0, kk * 16, g, tq);
+      load_a(oa, do_s, QS, r0, kk * 16, g, tq);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const bf16* kp = k_s + (nt * 8 + g) * QS + kk * 16 + tq * 2;
+        const bf16* vp = v_s + (nt * 8 + g) * QS + kk * 16 + tq * 2;
+        mma_bf16(s[nt], qa, ld32(kp), ld32(kp + 8));
+        mma_bf16(dp[nt], oa, ld32(vp), ld32(vp + 8));
+      }
+    }
+
+    // dS, written over S
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kpos = k0 + nt * 8 + tq * 2 + e;
+          const int ks = p.kseg != nullptr && kpos < p.sk
+                             ? p.kseg[(size_t)b * p.sk + kpos] : 0;
+          float& x = s[nt][rr * 2 + e];
+          const float pr = live(p, qpos[rr], kpos, qs[rr], ks)
+                               ? expf(x * p.scale - lse[rr]) : 0.f;
+          x = pr * (dp[nt][rr * 2 + e] - delta[rr]) * p.scale;
+        }
+
+    // dQ += dS K
+#pragma unroll
+    for (int t = 0; t < kBK / 16; ++t) {
+      uint32_t a[4];
+      acc_to_a(a, s, t);
+#pragma unroll
+      for (int dt = 0; dt < DT; ++dt) {
+        const bf16* kp = kt_s + (dt * 8 + g) * TS + t * 16 + tq * 2;
+        mma_bf16(acc[dt], a, ld32(kp), ld32(kp + 8));
+      }
+    }
+  }
+
+  bf16* dq = static_cast<bf16*>(p.dq);
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    if (qpos[rr] >= p.sq) continue;
+    bf16* row = dq + row_index(p, b, qpos[rr], h) * D;
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt)
+      *reinterpret_cast<uint32_t*>(row + dt * 8 + tq * 2) =
+          pack_bf16(acc[dt][rr * 2], acc[dt][rr * 2 + 1]);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads) bwd_dkv_mma(BwdParams p) {
+  constexpr int QS = D + 8;    // row stride of the row-major tiles
+  constexpr int TS = kBQ + 8;  // row stride of the transposed Q, dO tiles
+  constexpr int KK = D / 16;
+  constexpr int NT = kBQ / 8;  // n8 tiles of a 64-wide q column block
+  constexpr int DT = D / 8;
+
+  const int kt = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int rep = p.hq / p.hkv;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, tq = lane & 3;
+  const int k0 = kt * kBK, r0 = warp * 16;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);  // [kBK][QS]
+  bf16* v_s = k_s + kBK * QS;                     // [kBK][QS]
+  bf16* q_s = v_s + kBK * QS;                     // [kBQ][QS]
+  bf16* do_s = q_s + kBQ * QS;                    // [kBQ][QS]
+  bf16* qt_s = do_s + kBQ * QS;                   // [D][TS]
+  bf16* dot_s = qt_s + D * TS;                    // [D][TS]
+  float* lse_s = reinterpret_cast<float*>(dot_s + D * TS);  // [kBQ]
+  float* delta_s = lse_s + kBQ;                             // [kBQ]
+  int* qseg_s = reinterpret_cast<int*>(delta_s + kBQ);      // [kBQ]
+
+  const bf16* k = static_cast<const bf16*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const bf16* v = static_cast<const bf16*>(p.v) + b * p.v_sb + hk * p.v_sh;
+  stage<D, kBK>(k_s, nullptr, k, p.k_ss, k0, p.sk, tid);
+  stage<D, kBK>(v_s, nullptr, v, p.v_ss, k0, p.sk, tid);
+
+  // this thread's two kv rows: k0 + r0 + g and k0 + r0 + g + 8
+  int kpos[2], ks[2];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    kpos[rr] = k0 + r0 + g + 8 * rr;
+    ks[rr] = p.kseg != nullptr
+                 ? p.kseg[(size_t)b * p.sk + min(kpos[rr], p.sk - 1)] : 0;
+  }
+  float dk[DT][4], dv[DT][4];
+#pragma unroll
+  for (int t = 0; t < DT; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[t][e] = dv[t][e] = 0.f;
+
+  const int qb0 = first_q_tile(p, k0);
+  const int n_qb = (p.sq + kBQ - 1) / kBQ;
+  for (int r = 0; r < rep; ++r) {
+    const int h = hk * rep + r;
+    const bf16* q = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
+    const bf16* dout =
+        static_cast<const bf16*>(p.dout) + b * p.o_sb + h * p.o_sh;
+    for (int qb = qb0; qb < n_qb; ++qb) {
+      const int q0 = qb * kBQ;
+      __syncthreads();  // the previous tile is done with q_s ... qseg_s
+      stage<D, kBQ>(q_s, qt_s, q, p.q_ss, q0, p.sq, tid);
+      stage<D, kBQ>(do_s, dot_s, dout, p.o_ss, q0, p.sq, tid);
+      if (tid < kBQ) {
+        const int qpos = q0 + tid;
+        const bool in = qpos < p.sq;
+        lse_s[tid] = in ? p.lse[row_index(p, b, qpos, h)] : 0.f;
+        delta_s[tid] = in ? p.delta[row_index(p, b, qpos, h)] : 0.f;
+        qseg_s[tid] = in && p.qseg != nullptr
+                          ? p.qseg[(size_t)b * p.sq + qpos] : 0;
+      }
+      __syncthreads();
+
+      // S^T = K Q^T and dP^T = V dO^T: this warp's 16 kv rows x 64 q cols
+      float s[NT][4], dp[NT][4];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KK; ++kk) {
+        uint32_t ka[4], va[4];
+        load_a(ka, k_s, QS, r0, kk * 16, g, tq);
+        load_a(va, v_s, QS, r0, kk * 16, g, tq);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const bf16* qp = q_s + (nt * 8 + g) * QS + kk * 16 + tq * 2;
+          const bf16* op = do_s + (nt * 8 + g) * QS + kk * 16 + tq * 2;
+          mma_bf16(s[nt], ka, ld32(qp), ld32(qp + 8));
+          mma_bf16(dp[nt], va, ld32(op), ld32(op + 8));
+        }
+      }
+
+      // P^T over S^T, dS^T over dP^T
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int j = nt * 8 + tq * 2 + e;
+            float& x = s[nt][rr * 2 + e];
+            float& y = dp[nt][rr * 2 + e];
+            const float pr = live(p, q0 + j, kpos[rr], qseg_s[j], ks[rr])
+                                 ? expf(x * p.scale - lse_s[j]) : 0.f;
+            x = pr;
+            y = pr * (y - delta_s[j]) * p.scale;
+          }
+
+      // dV += P^T dO, dK += dS^T Q
+#pragma unroll
+      for (int t = 0; t < kBQ / 16; ++t) {
+        uint32_t pa[4], da[4];
+        acc_to_a(pa, s, t);
+        acc_to_a(da, dp, t);
+#pragma unroll
+        for (int dt = 0; dt < DT; ++dt) {
+          const bf16* op = dot_s + (dt * 8 + g) * TS + t * 16 + tq * 2;
+          const bf16* qp = qt_s + (dt * 8 + g) * TS + t * 16 + tq * 2;
+          mma_bf16(dv[dt], pa, ld32(op), ld32(op + 8));
+          mma_bf16(dk[dt], da, ld32(qp), ld32(qp + 8));
+        }
+      }
+    }
+  }
+
+  bf16* dk_out = static_cast<bf16*>(p.dk);
+  bf16* dv_out = static_cast<bf16*>(p.dv);
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    if (kpos[rr] >= p.sk) continue;
+    const size_t row = (((size_t)b * p.sk + kpos[rr]) * p.hkv + hk) * D;
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt) {
+      const int col = dt * 8 + tq * 2;
+      *reinterpret_cast<uint32_t*>(dk_out + row + col) =
+          pack_bf16(dk[dt][rr * 2], dk[dt][rr * 2 + 1]);
+      *reinterpret_cast<uint32_t*>(dv_out + row + col) =
+          pack_bf16(dv[dt][rr * 2], dv[dt][rr * 2 + 1]);
+    }
+  }
+}
+
+template <typename Kernel>
+int launch(Kernel kernel, dim3 grid, int threads, size_t smem,
+           const BwdParams& p, cudaStream_t stream) {
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem);
+  kernel<<<grid, threads, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int dq(int dtype, const BwdParams& p, int B, cudaStream_t s) {
+  const dim3 grid((p.sq + kBQ - 1) / kBQ, p.hq, B);
+  if (dtype == DTYPE_BF16)
+    return launch(bwd_dq_mma<D>, grid, kMmaThreads,
+                  sizeof(bf16) * ((size_t)(2 * kBQ + 2 * kBK) * (D + 8) +
+                                  (size_t)D * (kBK + 8)),
+                  p, s);
+  return launch(bwd_dq_f32<D>, grid, kThreads,
+                sizeof(float) * ((size_t)(2 * kBQ + 2 * kBK) * (D + 1) +
+                                 (size_t)kBQ * (kBK + 1)),
+                p, s);
+}
+
+template <int D>
+int dkv(int dtype, const BwdParams& p, int B, cudaStream_t s) {
+  const dim3 grid((p.sk + kBK - 1) / kBK, p.hkv, B);
+  const size_t vecs = 3 * sizeof(float) * kBQ;  // lse, delta, q segments
+  if (dtype == DTYPE_BF16)
+    return launch(bwd_dkv_mma<D>, grid, kMmaThreads,
+                  sizeof(bf16) * ((size_t)(2 * kBK + 2 * kBQ) * (D + 8) +
+                                  (size_t)2 * D * (kBQ + 8)) + vecs,
+                  p, s);
+  return launch(bwd_dkv_f32<D>, grid, kThreads,
+                sizeof(float) * ((size_t)(2 * kBK + 2 * kBQ) * (D + 1) +
+                                 (size_t)2 * kBK * (kBQ + 1)) + vecs,
+                p, s);
+}
+
+BwdParams make_params(const void* q, const void* k, const void* v,
+                      const void* dout, const void* lse, const void* delta,
+                      const void* qseg, const void* kseg, int sq, int sk,
+                      int hq, int hkv, const long long* st, int causal,
+                      float scale) {
+  BwdParams p;
+  p.q = q; p.k = k; p.v = v; p.dout = dout;
+  p.lse = static_cast<const float*>(lse);
+  p.delta = static_cast<const float*>(delta);
+  p.qseg = static_cast<const int*>(qseg);
+  p.kseg = static_cast<const int*>(kseg);
+  p.dq = p.dk = p.dv = nullptr;
+  p.sq = sq; p.sk = sk; p.hq = hq; p.hkv = hkv;
+  p.q_sb = st[0]; p.q_ss = st[1]; p.q_sh = st[2];
+  p.k_sb = st[3]; p.k_ss = st[4]; p.k_sh = st[5];
+  p.v_sb = st[6]; p.v_ss = st[7]; p.v_sh = st[8];
+  p.o_sb = st[9]; p.o_ss = st[10]; p.o_sh = st[11];
+  p.causal = causal;
+  p.scale = scale;
+  return p;
+}
+
+bool valid_dtype(int dtype) {
+  return dtype == DTYPE_BF16 || dtype == DTYPE_F32;
+}
+
+}  // namespace
+
+// strides: 12 element strides, (batch, seq, head) for q, k, v and do.
+// Head dims: those of the configs in CONFIGS (the wrapper refuses others).
+extern "C" int flash_bwd_dq(int dtype, const void* q, const void* k,
+                            const void* v, const void* dout, const void* lse,
+                            const void* delta, const void* qseg,
+                            const void* kseg, void* dq_out, int B, int sq,
+                            int sk, int hq, int hkv, int d,
+                            const long long* strides, int causal, float scale,
+                            void* stream) {
+  if (!valid_dtype(dtype)) return (int)cudaErrorInvalidValue;
+  BwdParams p = make_params(q, k, v, dout, lse, delta, qseg, kseg, sq, sk, hq,
+                            hkv, strides, causal, scale);
+  p.dq = dq_out;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 16: return dq<16>(dtype, p, B, s);
+    case 64: return dq<64>(dtype, p, B, s);
+    case 128: return dq<128>(dtype, p, B, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+extern "C" int flash_bwd_dkv(int dtype, const void* q, const void* k,
+                             const void* v, const void* dout, const void* lse,
+                             const void* delta, const void* qseg,
+                             const void* kseg, void* dk_out, void* dv_out,
+                             int B, int sq, int sk, int hq, int hkv, int d,
+                             const long long* strides, int causal,
+                             float scale, void* stream) {
+  if (!valid_dtype(dtype)) return (int)cudaErrorInvalidValue;
+  BwdParams p = make_params(q, k, v, dout, lse, delta, qseg, kseg, sq, sk, hq,
+                            hkv, strides, causal, scale);
+  p.dk = dk_out;
+  p.dv = dv_out;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 16: return dkv<16>(dtype, p, B, s);
+    case 64: return dkv<64>(dtype, p, B, s);
+    case 128: return dkv<128>(dtype, p, B, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}

@@ -1,20 +1,27 @@
-"""Flash-attention forward (kernel K2) and its plain PyTorch version.
+"""Flash attention: forward (kernel K2), backward (kernels K3 and K4), and
+their plain PyTorch versions.
 
 Counterpart of the JAX package's ``ops/flash_attention.py`` public
-``flash_attention``, forward only: q ``[B,Sq,Hq,D]``, k/v ``[B,Sk,Hkv,D]``
--> o ``[B,Sq,Hq,D]`` (and lse ``[B,Sq,Hq]`` float32 with
-``return_lse=True``). The masks are the TPU kernel's: kv padding, causal
-relative to the end of the kv axis (``k_pos <= q_pos + sk - sq``) and an
-optional segment-id equality mask. A fully masked row gives ``o = 0`` and
-``lse = -1e30``.
+``flash_attention``: q ``[B,Sq,Hq,D]``, k/v ``[B,Sk,Hkv,D]`` -> o
+``[B,Sq,Hq,D]`` (and lse ``[B,Sq,Hq]`` float32 with ``return_lse=True``).
+The masks are the TPU kernels': kv padding, causal relative to the end of
+the kv axis (``k_pos <= q_pos + sk - sq``) and an optional segment-id
+equality mask. A fully masked row gives ``o = 0`` and ``lse = -1e30``.
 
-On a CUDA tensor the wrapper launches the hand-written kernel
-``csrc/flash_fwd.cu`` (which replaces ``_fwd_kernel`` of the JAX package;
-see the source for its design and bound) or raises; on a CPU tensor it
-runs ``flash_attention_plain``. ``flash_attention.launches`` counts kernel
-launches and ``flash_attention.segment_launches`` the launches with segment
-ids (the cached-prefix part of paged prefill). The backward kernels are
-not ported yet, so nothing here is differentiable.
+``flash_attention`` is differentiable in q, k and v (a
+``torch.autograd.Function``, the counterpart of ``_flash``'s custom VJP):
+the forward saves q, k, v, the segment ids, o and lse, and the backward
+recomputes p from lse, with ``delta = rowsum(do * o)``. The
+``return_lse=True`` path is forward-only, as in JAX.
+
+On CUDA tensors the wrappers launch the hand-written kernels
+(``csrc/flash_fwd.cu`` for ``_fwd_kernel``, ``csrc/flash_bwd.cu`` for
+``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``; see the sources for their
+design and bound) or raise; on CPU tensors they run the plain versions.
+Launch counters: ``flash_attention.launches`` (K2),
+``flash_attention.segment_launches`` (K2 with segment ids, the
+cached-prefix part of paged prefill), ``flash_attention.dq_launches`` (K3)
+and ``flash_attention.dkv_launches`` (K4).
 """
 
 from __future__ import annotations
@@ -31,6 +38,21 @@ KERNEL_HEAD_DIMS = (16, 64, 128)  # every head dim in CONFIGS
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def _mask(q, k, causal: bool, q_seg, kv_seg) -> torch.Tensor:
+    """The kernels' mask, [B, 1, 1, Sq, Sk] (kv axis grouped as in
+    ``flash_attention_plain``)."""
+    b, sq = q.shape[:2]
+    sk = k.shape[1]
+    mask = torch.ones(sq, sk, dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask.tril(sk - sq)
+    mask = mask[None, None, None].expand(b, 1, 1, sq, sk)
+    if q_seg is not None:
+        mask = mask & (q_seg[:, None, None, :, None]
+                       == kv_seg[:, None, None, None, :])
+    return mask
+
+
 def flash_attention_plain(q, k, v, *, causal: bool, q_seg, kv_seg,
                           scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's function in plain PyTorch: returns (o, lse)."""
@@ -39,13 +61,7 @@ def flash_attention_plain(q, k, v, *, causal: bool, q_seg, kv_seg,
     rep = hq // hkv
     qg = q.reshape(b, sq, hkv, rep, d)
     logits = torch.einsum("bshrd,bkhd->bhrsk", qg.float(), k.float()) * scale
-    mask = torch.ones(sq, sk, dtype=torch.bool, device=q.device)
-    if causal:
-        mask = mask.tril(sk - sq)
-    mask = mask[None, None, None].expand(b, 1, 1, sq, sk)
-    if q_seg is not None:
-        mask = mask & (q_seg[:, None, None, :, None]
-                       == kv_seg[:, None, None, None, :])
+    mask = _mask(q, k, causal, q_seg, kv_seg)
     logits = logits.masked_fill(~mask, NEG_INF)
     m = logits.amax(dim=-1, keepdim=True)
     p = torch.exp(logits - m).masked_fill(~mask, 0.0)
@@ -57,45 +73,119 @@ def flash_attention_plain(q, k, v, *, causal: bool, q_seg, kv_seg,
             lse.reshape(b, hq, sq).transpose(1, 2).contiguous())
 
 
+def attention_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """``delta = rowsum(do * o)`` in float32, [B, Sq, Hq]."""
+    return torch.einsum("bshd,bshd->bsh", do.float(), o.float())
+
+
+def _bwd_terms(q, k, v, do, lse, delta, *, causal, q_seg, kv_seg, scale):
+    """p and ds of every (q, k) pair, [B, Hkv, rep, Sq, Sk] float32, by the
+    kernels' formulas, with q and do grouped [B, Sq, Hkv, rep, D]."""
+    b, sq, hq, d = q.shape
+    hkv = k.shape[2]
+    rep = hq // hkv
+    qg = q.reshape(b, sq, hkv, rep, d).float()
+    dog = do.reshape(b, sq, hkv, rep, d).float()
+    s = torch.einsum("bshrd,bkhd->bhrsk", qg, k.float()) * scale
+    mask = _mask(q, k, causal, q_seg, kv_seg)
+
+    def grouped(x):  # [B, Sq, Hq] -> [B, Hkv, rep, Sq, 1]
+        return x.reshape(b, sq, hkv, rep).permute(0, 2, 3, 1)[..., None]
+
+    # zeroed after the exp: a fully masked row has lse = -1e30
+    p = torch.exp(s.masked_fill(~mask, NEG_INF) - grouped(lse))
+    p = p.masked_fill(~mask, 0.0)
+    dp = torch.einsum("bshrd,bkhd->bhrsk", dog, v.float())
+    ds = p * (dp - grouped(delta)) * scale
+    return p, ds, qg, dog
+
+
+def flash_bwd_dq_plain(q, k, v, do, lse, delta, *, causal: bool, q_seg,
+                       kv_seg, scale: float) -> torch.Tensor:
+    """K3's function in plain PyTorch: dq in q's type."""
+    _, ds, _, _ = _bwd_terms(q, k, v, do, lse, delta, causal=causal,
+                             q_seg=q_seg, kv_seg=kv_seg, scale=scale)
+    return torch.einsum("bhrsk,bkhd->bshrd", ds, k.float()).reshape(
+        q.shape).to(q.dtype)
+
+
+def flash_bwd_dkv_plain(q, k, v, do, lse, delta, *, causal: bool, q_seg,
+                        kv_seg, scale: float):
+    """K4's function in plain PyTorch: (dk, dv) in k's and v's types."""
+    p, ds, qg, dog = _bwd_terms(q, k, v, do, lse, delta, causal=causal,
+                                q_seg=q_seg, kv_seg=kv_seg, scale=scale)
+    return (torch.einsum("bhrsk,bshrd->bkhd", ds, qg).to(k.dtype),
+            torch.einsum("bhrsk,bshrd->bkhd", p, dog).to(v.dtype))
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool, q_seg,
+                              kv_seg, scale: float):
+    """The backward of ``flash_attention`` in plain PyTorch, recomputing p
+    from lse by the kernels' formulas: returns (dq, dk, dv)."""
+    kw = dict(causal=causal, q_seg=q_seg, kv_seg=kv_seg, scale=scale)
+    delta = attention_delta(o, do)
+    return (flash_bwd_dq_plain(q, k, v, do, lse, delta, **kw),
+            *flash_bwd_dkv_plain(q, k, v, do, lse, delta, **kw))
+
+
+def _check_inputs(name: str, *tensors) -> None:
+    """Refuse what the kernels do not take: one float32 or bf16 type, a
+    head dim in KERNEL_HEAD_DIMS, one device, a contiguous head dim and,
+    for bf16 (16-byte vector loads), 16-byte aligned rows."""
+    dtype, d = tensors[0].dtype, tensors[0].shape[-1]
+    if dtype not in _DTYPE_CODES or any(t.dtype != dtype for t in tensors):
+        raise TypeError(f"{name} takes float32 or bfloat16 tensors of one "
+                        f"type, got {[t.dtype for t in tensors]}")
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{name} head dim {d} not in {KERNEL_HEAD_DIMS}")
+    if any(t.device != tensors[0].device for t in tensors):
+        raise ValueError(f"{name}: every tensor must lie on one device")
+    if any(t.stride(-1) != 1 for t in tensors):
+        raise ValueError(f"{name} needs a contiguous head dim")
+    if dtype == torch.bfloat16 and any(
+            t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3])
+            for t in tensors):
+        raise ValueError(f"the bf16 {name} kernel loads 16-byte rows: its "
+                         f"inputs need 16-byte aligned rows")
+
+
+def _segments(q_seg, kv_seg, b: int, sq: int, sk: int, device):
+    if q_seg is None:
+        return None, None
+    q_seg = q_seg.to(device=device, dtype=torch.int32).contiguous()
+    kv_seg = kv_seg.to(device=device, dtype=torch.int32).contiguous()
+    if q_seg.shape != (b, sq) or kv_seg.shape != (b, sk):
+        raise ValueError(f"segment ids {tuple(q_seg.shape)}, "
+                         f"{tuple(kv_seg.shape)} do not match "
+                         f"({b}, {sq}), ({b}, {sk})")
+    return q_seg, kv_seg
+
+
+def _ptr(t) -> Optional[int]:
+    return t.data_ptr() if t is not None else None
+
+
+def _strides(*tensors):
+    return (ctypes.c_longlong * (3 * len(tensors)))(
+        *(st for t in tensors for st in t.stride()[:3]))
+
+
 def _launch(q, k, v, *, causal: bool, q_seg, kv_seg,
             scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     b, sq, hq, d = q.shape
     _, sk, hkv, _ = k.shape
-    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype \
-            or v.dtype != q.dtype:
-        raise TypeError(f"flash_fwd takes float32 or bfloat16 q/k/v of one "
-                        f"type, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash_fwd head dim {d} not in {KERNEL_HEAD_DIMS}")
-    if not (q.device == k.device == v.device):
-        raise ValueError("q, k and v must lie on one device")
-    if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
-        raise ValueError("flash_fwd needs a contiguous head dim")
+    _check_inputs("flash_fwd", q, k, v)
     o = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, sq, hq), dtype=torch.float32, device=q.device)
-    if q.dtype == torch.bfloat16 and any(
-            t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3])
-            for t in (q, k, v)):
-        raise ValueError("the bf16 flash_fwd kernel loads 16-byte rows: "
-                         "q/k/v need 16-byte aligned rows")
     if o.numel() == 0:
         return o, lse
-    if q_seg is not None:
-        q_seg = q_seg.to(device=q.device, dtype=torch.int32).contiguous()
-        kv_seg = kv_seg.to(device=q.device, dtype=torch.int32).contiguous()
-        if q_seg.shape != (b, sq) or kv_seg.shape != (b, sk):
-            raise ValueError(f"segment ids {tuple(q_seg.shape)}, "
-                             f"{tuple(kv_seg.shape)} do not match "
-                             f"({b}, {sq}), ({b}, {sk})")
-    strides = (ctypes.c_longlong * 12)(
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3])
+    q_seg, kv_seg = _segments(q_seg, kv_seg, b, sq, sk, q.device)
     fn = library("flash_fwd").flash_fwd
     with torch.cuda.device(q.device):
         code = fn(_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
-                  v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-                  q_seg.data_ptr() if q_seg is not None else None,
-                  kv_seg.data_ptr() if kv_seg is not None else None,
-                  b, sq, sk, hq, hkv, d, strides, int(causal), float(scale),
+                  v.data_ptr(), o.data_ptr(), lse.data_ptr(), _ptr(q_seg),
+                  _ptr(kv_seg), b, sq, sk, hq, hkv, d, _strides(q, k, v, o),
+                  int(causal), float(scale),
                   torch.cuda.current_stream(q.device).cuda_stream)
     check("flash_fwd", code)
     flash_attention.launches += 1
@@ -104,15 +194,120 @@ def _launch(q, k, v, *, causal: bool, q_seg, kv_seg,
     return o, lse
 
 
+def _bwd_prepare(name, q, k, v, do, lse, delta, q_seg, kv_seg):
+    _check_inputs(name, q, k, v, do)
+    b, sq, hq, _ = q.shape
+    sk = k.shape[1]
+    for t, what in ((lse, "lse"), (delta, "delta")):
+        if t.dtype != torch.float32 or tuple(t.shape) != (b, sq, hq) \
+                or not t.is_contiguous() or t.device != q.device:
+            raise ValueError(f"{name}: {what} must be a contiguous float32 "
+                             f"[{b}, {sq}, {hq}] tensor on {q.device}")
+    return _segments(q_seg, kv_seg, b, sq, sk, q.device)
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool, q_seg=None,
+                 kv_seg=None, scale: float) -> torch.Tensor:
+    """K3 on CUDA tensors (raises on what it does not take): dq."""
+    q_seg, kv_seg = _bwd_prepare("flash_bwd_dq", q, k, v, do, lse, delta,
+                                 q_seg, kv_seg)
+    b, sq, hq, d = q.shape
+    _, sk, hkv, _ = k.shape
+    dq = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
+    if dq.numel() == 0:
+        return dq
+    fn = library("flash_bwd").flash_bwd_dq
+    with torch.cuda.device(q.device):
+        code = fn(_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                  delta.data_ptr(), _ptr(q_seg), _ptr(kv_seg), dq.data_ptr(),
+                  b, sq, sk, hq, hkv, d, _strides(q, k, v, do), int(causal),
+                  float(scale),
+                  torch.cuda.current_stream(q.device).cuda_stream)
+    check("flash_bwd_dq", code)
+    flash_attention.dq_launches += 1
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool, q_seg=None,
+                  kv_seg=None, scale: float):
+    """K4 on CUDA tensors (raises on what it does not take): (dk, dv)."""
+    q_seg, kv_seg = _bwd_prepare("flash_bwd_dkv", q, k, v, do, lse, delta,
+                                 q_seg, kv_seg)
+    b, sq, hq, d = q.shape
+    _, sk, hkv, _ = k.shape
+    dk = torch.empty((b, sk, hkv, d), dtype=k.dtype, device=k.device)
+    dv = torch.empty((b, sk, hkv, d), dtype=v.dtype, device=v.device)
+    if dk.numel() == 0:
+        return dk, dv
+    fn = library("flash_bwd").flash_bwd_dkv
+    with torch.cuda.device(q.device):
+        code = fn(_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                  delta.data_ptr(), _ptr(q_seg), _ptr(kv_seg), dk.data_ptr(),
+                  dv.data_ptr(), b, sq, sk, hq, hkv, d,
+                  _strides(q, k, v, do), int(causal), float(scale),
+                  torch.cuda.current_stream(q.device).cuda_stream)
+    check("flash_bwd_dkv", code)
+    flash_attention.dkv_launches += 1
+    return dk, dv
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool, q_seg,
+                        kv_seg, scale: float):
+    """The backward of ``flash_attention``: (dq, dk, dv). K3 and K4 on CUDA
+    tensors, the plain version on CPU tensors."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                         q_seg=q_seg, kv_seg=kv_seg,
+                                         scale=scale)
+    do = do.contiguous()
+    delta = attention_delta(o, do)
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, causal=causal, q_seg=q_seg,
+                      kv_seg=kv_seg, scale=scale)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal=causal,
+                           q_seg=q_seg, kv_seg=kv_seg, scale=scale)
+    return dq, dk, dv
+
+
+def _forward(q, k, v, *, causal, q_seg, kv_seg, scale):
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, q_seg=q_seg,
+                                     kv_seg=kv_seg, scale=scale)
+    return _launch(q, k, v, causal=causal, q_seg=q_seg, kv_seg=kv_seg,
+                   scale=scale)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """``_flash`` / ``_flash_fwd`` / ``_flash_bwd`` of the JAX package."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_seg, kv_seg, causal, scale):
+        o, lse = _forward(q, k, v, causal=causal, q_seg=q_seg,
+                          kv_seg=kv_seg, scale=scale)
+        ctx.save_for_backward(q, k, v, q_seg, kv_seg, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, q_seg, kv_seg, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do,
+                                         causal=ctx.causal, q_seg=q_seg,
+                                         kv_seg=kv_seg, scale=ctx.scale)
+        return dq, dk, dv, None, None, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, segment_ids=None,
                     scale: Optional[float] = None, return_lse: bool = False):
-    """Flash attention forward. q [B,Sq,Hq,D]; k/v [B,Sk,Hkv,D].
+    """Flash attention. q [B,Sq,Hq,D]; k/v [B,Sk,Hkv,D].
 
     segment_ids: None, one [B,S] tensor (Sq == Sk), or a
     (q_segment_ids [B,Sq], kv_segment_ids [B,Sk]) pair.
     return_lse: also return the log-sum-exp [B,Sq,Hq] (float32), the hook
-    for merging partials over disjoint kv sets (paged prefill).
+    for merging partials over disjoint kv sets (paged prefill); that path
+    is forward-only. Otherwise the result is differentiable in q, k, v.
     """
     b, sq, hq, d = q.shape
     _, sk, hkv, _ = k.shape
@@ -122,14 +317,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"causal attention needs sk >= sq, got {sq=} {sk=}")
     scale = float(scale if scale is not None else d ** -0.5)
     q_seg, kv_seg = split_segment_ids(segment_ids, sq, sk)
-    if q.device.type == "cpu":
-        o, lse = flash_attention_plain(q, k, v, causal=causal, q_seg=q_seg,
-                                       kv_seg=kv_seg, scale=scale)
-    else:
-        o, lse = _launch(q, k, v, causal=causal, q_seg=q_seg, kv_seg=kv_seg,
-                         scale=scale)
-    return (o, lse) if return_lse else o
+    if return_lse:
+        return _forward(q, k, v, causal=causal, q_seg=q_seg, kv_seg=kv_seg,
+                        scale=scale)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, q_seg, kv_seg, causal, scale)
+    return _forward(q, k, v, causal=causal, q_seg=q_seg, kv_seg=kv_seg,
+                    scale=scale)[0]
 
 
 flash_attention.launches = 0
 flash_attention.segment_launches = 0
+flash_attention.dq_launches = 0
+flash_attention.dkv_launches = 0

@@ -6,9 +6,11 @@ with a card and no JAX (there without the repo's conftest):
     python -m pytest --noconftest -m gpu tests/test_torch_kernels.py
 
 Tests marked ``gpu`` decide in their body whether a card is present and
-skip without one. Tolerances: float32 1e-5 (summation order only);
-bfloat16 2e-2 + 1e-2*|plain| (outputs rounded once to bf16 on both sides,
-float32 accumulators); lse 1e-3 absolute (float32 on both sides).
+skip without one. Tolerances: float32 1e-5 (summation order only; 1e-4
+for the backward, whose sums run over up to 200 terms of magnitude up to
+10); bfloat16 2e-2 + 1e-2*|plain| (float32 accumulators; the outputs, and
+in the backward p and ds before their products, are rounded to bf16 as
+the TPU kernels round them); lse 1e-3 absolute (float32 on both sides).
 """
 
 import numpy as np
@@ -20,6 +22,7 @@ from ray_tpu_torch.ops import flash_attention as t_flash
 from ray_tpu_torch.ops import paged_attention as t_paged
 
 F32 = dict(rtol=1e-5, atol=1e-5)
+F32_BWD = dict(rtol=1e-4, atol=1e-4)
 BF16 = dict(rtol=1e-2, atol=2e-2)
 
 
@@ -80,12 +83,37 @@ def test_cpu_tensors_take_the_plain_versions():
     assert t_flash.flash_attention.launches == n_fl
 
 
+def test_cpu_backward_takes_the_plain_version():
+    """On CPU tensors the autograd backward of flash_attention is the
+    plain backward; K3 and K4 are never launched."""
+    rng = np.random.default_rng(1)
+    q, k, v = (x.requires_grad_() for x in _qkv(rng, 9, 12, 4, 2, 16))
+    do = torch.from_numpy(rng.standard_normal((2, 9, 4, 16))
+                          .astype(np.float32))
+    counts = (t_flash.flash_attention.dq_launches,
+              t_flash.flash_attention.dkv_launches)
+    t_flash.flash_attention(q, k, v, causal=True).backward(do)
+    with torch.no_grad():
+        o, lse = t_flash.flash_attention_plain(q, k, v, causal=True,
+                                               q_seg=None, kv_seg=None,
+                                               scale=16 ** -0.5)
+        want = t_flash.flash_attention_bwd_plain(
+            q, k, v, o, lse, do, causal=True, q_seg=None, kv_seg=None,
+            scale=16 ** -0.5)
+    for got, w in zip((q.grad, k.grad, v.grad), want):
+        assert torch.equal(got, w)
+    assert (t_flash.flash_attention.dq_launches,
+            t_flash.flash_attention.dkv_launches) == counts
+
+
 def test_build_check_raises_on_nonzero_codes():
     with pytest.raises(RuntimeError, match="cudaError 9"):
         _build.check("paged_decode", 9)
     _build.check("paged_decode", 0)
     assert set(_build.SOURCES) == set(_build.SIGNATURES)
-    assert all(name in fns for name, fns in _build.SIGNATURES.items())
+    # every library's entry points are named after it
+    assert all(fns and all(fn.startswith(name) for fn in fns)
+               for name, fns in _build.SIGNATURES.items())
 
 
 @pytest.mark.gpu
@@ -138,6 +166,90 @@ def test_flash_kernel_matches_plain_on_card(dtype, case):
         assert (o[0] == 0).all() and (lse[0] == -1e30).all()
 
 
+def _bwd_inputs(rng, case, d, dt):
+    """q, k, v, do on the card and the segment ids of a backward case; k
+    and v are strided views of one fused tensor, as in training."""
+    segs, causal = None, True
+    if case == "causal":
+        sq = sk = 100
+    elif case == "sq_lt_sk":
+        sq, sk = 70, 200
+    else:  # packed rows, q rows of segment 3 see no kv row at all
+        sq = sk = 130
+        kv_seg = torch.from_numpy(np.stack([
+            np.repeat([0, 1, 2], [50, 50, 30]),
+            np.repeat([0, 1], [64, 66])]).astype(np.int32))
+        q_seg = kv_seg.clone()
+        q_seg[0, 120:] = 3
+        segs = (q_seg.cuda(), kv_seg.cuda())
+    q = rng.standard_normal((2, sq, 8, d)).astype(np.float32)
+    kv = rng.standard_normal((2, sk, 4, d)).astype(np.float32)
+    do = rng.standard_normal((2, sq, 8, d)).astype(np.float32)
+    q, kv, do = (torch.from_numpy(x).to("cuda", dt) for x in (q, kv, do))
+    return q, kv[:, :, :2], kv[:, :, 2:], do, segs, causal
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [16, 64, 128])
+@pytest.mark.parametrize("case", ["causal", "segments", "sq_lt_sk"])
+def test_flash_bwd_kernels_match_plain_on_card(dtype, d, case):
+    """K3 and K4 against their plain versions on the same q, k, v, do,
+    lse and delta (lse from K2)."""
+    _need_card()
+    rng = np.random.default_rng(11)
+    q, k, v, do, segs, causal = _bwd_inputs(rng, case, d,
+                                            getattr(torch, dtype))
+    kw = dict(causal=causal, q_seg=None if segs is None else segs[0],
+              kv_seg=None if segs is None else segs[1], scale=d ** -0.5)
+    o, lse = t_flash.flash_attention(q, k, v, causal=causal,
+                                     segment_ids=segs, return_lse=True)
+    delta = t_flash.attention_delta(o, do)
+    before = (t_flash.flash_attention.dq_launches,
+              t_flash.flash_attention.dkv_launches)
+    dq = t_flash.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = t_flash.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    want_dq = t_flash.flash_bwd_dq_plain(q, k, v, do, lse, delta, **kw)
+    want_dk, want_dv = t_flash.flash_bwd_dkv_plain(q, k, v, do, lse, delta,
+                                                   **kw)
+    torch.cuda.synchronize()
+    assert (t_flash.flash_attention.dq_launches,
+            t_flash.flash_attention.dkv_launches) == (before[0] + 1,
+                                                      before[1] + 1)
+    tol = F32_BWD if dtype == "float32" else BF16
+    for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
+        assert torch.isfinite(got).all()
+        _close(got, want, **tol)
+    if case == "segments":  # fully masked rows: lse = -1e30, dq = 0
+        assert (lse[0, 120:] == -1e30).all() and (dq[0, 120:] == 0).all()
+
+
+@pytest.mark.gpu
+def test_flash_attention_autograd_runs_k2_k3_k4_on_card():
+    _need_card()
+    rng = np.random.default_rng(12)
+    q, k, v, do, _, _ = _bwd_inputs(rng, "causal", 64, torch.bfloat16)
+    q, k, v = (x.detach().requires_grad_() for x in (q, k, v))
+    before = (t_flash.flash_attention.launches,
+              t_flash.flash_attention.dq_launches,
+              t_flash.flash_attention.dkv_launches)
+    t_flash.flash_attention(q, k, v, causal=True).backward(do)
+    with torch.no_grad():
+        o, lse = t_flash.flash_attention_plain(q, k, v, causal=True,
+                                               q_seg=None, kv_seg=None,
+                                               scale=0.125)
+        want = t_flash.flash_attention_bwd_plain(
+            q, k, v, o, lse, do, causal=True, q_seg=None, kv_seg=None,
+            scale=0.125)
+    torch.cuda.synchronize()
+    assert (t_flash.flash_attention.launches,
+            t_flash.flash_attention.dq_launches,
+            t_flash.flash_attention.dkv_launches) == tuple(
+                n + 1 for n in before)
+    for got, w in zip((q.grad, k.grad, v.grad), want):
+        _close(got, w, **BF16)
+
+
 @pytest.mark.gpu
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
     _need_card()
@@ -147,3 +259,18 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
     q = torch.zeros(1, 8, 2, 48, device="cuda")
     with pytest.raises(ValueError, match="head dim"):
         t_flash.flash_attention(q, q, q, causal=False)
+    # the backward wrappers: type, head dim, alignment, lse/delta layout
+    x = torch.zeros(1, 8, 2, 64, device="cuda", dtype=torch.bfloat16)
+    vec = torch.zeros(1, 8, 2, device="cuda")
+    kw = dict(causal=True, scale=0.125)
+    for fn in (t_flash.flash_bwd_dq, t_flash.flash_bwd_dkv):
+        with pytest.raises(TypeError):
+            fn(x.half(), x.half(), x.half(), x.half(), vec, vec, **kw)
+        y = torch.zeros(1, 8, 2, 48, device="cuda", dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="head dim"):
+            fn(y, y, y, y, vec, vec, **kw)
+        wide = torch.zeros(1, 8, 2, 72, device="cuda", dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="16-byte"):
+            fn(wide[..., 1:65], x, x, x, vec, vec, **kw)
+        with pytest.raises(ValueError, match="lse"):
+            fn(x, x, x, x, vec.double(), vec, **kw)

@@ -4,8 +4,10 @@ Inputs are made from a seed with numpy and fed to both sides in float32.
 Pallas kernels run as the JAX tests run them on the CPU (interpret mode),
 at their tiny shapes; on the CPU the port runs each kernel's plain
 PyTorch version. Tolerance: 1e-5 absolute and relative (float32, only
-the summation order differs). The CUDA kernels are held against these
-plain versions in tests/test_torch_kernels.py.
+the summation order differs); 5e-5 for the backward, as the JAX
+package's own grad-parity tests state it (sums over up to 96 kv rows).
+The CUDA kernels are held against these plain versions in
+tests/test_torch_kernels.py.
 """
 
 import dataclasses
@@ -27,6 +29,7 @@ from ray_tpu_torch.ops import flash_attention as t_flash
 from ray_tpu_torch.ops import paged_attention as t_paged
 
 TOL = dict(rtol=1e-5, atol=1e-5)
+BWD_TOL = dict(rtol=5e-5, atol=5e-5)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -43,9 +46,10 @@ def _t(a):
     return torch.from_numpy(np.array(a))
 
 
-def _close(got, want, **tol):
+def _close(got, want, err_msg="", **tol):
     np.testing.assert_allclose(np.asarray(got, np.float32),
-                               np.asarray(want, np.float32), **(tol or TOL))
+                               np.asarray(want, np.float32),
+                               err_msg=err_msg, **(tol or TOL))
 
 
 # ----------------------------------------------------------------- config
@@ -200,6 +204,87 @@ def test_flash_forward_with_lse_matches_jax_kernel(case):
     if case == "fully_masked_rows":
         assert (to[:, 10:] == 0).all()
         assert (tl[:, 10:] == -1e30).all()
+
+
+def _bwd_case(case):
+    """q, k, v, do, segment ids and causality of a backward case."""
+    rng = np.random.default_rng(8)
+    segs, causal = None, True
+    if case == "gqa_causal":
+        q, k, v = _qkv(rng, 40, 40, d=16)
+    elif case == "sq_lt_sk":
+        q, k, v = _qkv(rng, 24, 70, d=16)
+    elif case == "packed_segments":
+        q, k, v = _qkv(rng, 48, 48, d=32)
+        seg = np.repeat(np.arange(3, dtype=np.int32), [20, 20, 8])
+        segs = np.stack([seg, np.sort(seg[::-1])])
+    else:  # q rows of segment 2 match no kv row: lse = -1e30, dq = 0
+        q, k, v = _qkv(rng, 16, 40, d=16)
+        causal = False
+        q_seg = np.where(np.arange(16)[None] < 10, 1, 2).repeat(2, 0)
+        segs = (q_seg.astype(np.int32), np.ones((2, 40), np.int32))
+    do = rng.standard_normal(q.shape).astype(np.float32)
+    return q, k, v, do, segs, causal
+
+
+def _split(segs, sq, sk):
+    return t_attn.split_segment_ids(
+        None if segs is None else (tuple(map(_t, segs)) if isinstance(
+            segs, tuple) else _t(segs)), sq, sk)
+
+
+@pytest.mark.parametrize("case", ["gqa_causal", "sq_lt_sk",
+                                  "packed_segments", "fully_masked_row"])
+def test_flash_backward_plain_matches_jax_pallas_backward(case):
+    """``flash_attention_bwd_plain`` against ``jax.vjp`` of the JAX
+    ``flash_attention``, whose backward is the Pallas K3/K4 in interpret
+    mode, on the same cotangent."""
+    q, k, v, do, segs, causal = _bwd_case(case)
+    jsegs = (None if segs is None else tuple(map(jnp.asarray, segs))
+             if isinstance(segs, tuple) else jnp.asarray(segs))
+    _, vjp = jax.vjp(functools.partial(
+        jax_flash.flash_attention, causal=causal, segment_ids=jsegs,
+        interpret=True), jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(do))
+    q_seg, kv_seg = _split(segs, q.shape[1], k.shape[1])
+    o, lse = t_flash.flash_attention_plain(
+        _t(q), _t(k), _t(v), causal=causal, q_seg=q_seg, kv_seg=kv_seg,
+        scale=q.shape[-1] ** -0.5)
+    got = t_flash.flash_attention_bwd_plain(
+        _t(q), _t(k), _t(v), o, lse, _t(do), causal=causal, q_seg=q_seg,
+        kv_seg=kv_seg, scale=q.shape[-1] ** -0.5)
+    for g, w, name in zip(got, want, "qkv"):
+        _close(g, w, err_msg=f"d{name}", **BWD_TOL)
+    if case == "fully_masked_row":
+        assert (got[0][:, 10:] == 0).all()
+
+
+@pytest.mark.parametrize("case", ["gqa_causal", "packed_segments"])
+def test_flash_autograd_matches_reference_autograd(case):
+    """The autograd Function (plain forward and backward on the CPU)
+    against torch autograd through ``reference_attention``."""
+    q, k, v, do, segs, causal = _bwd_case(case)
+    seg_t = None if segs is None else _t(segs)
+    grads = []
+    for fn in (t_flash.flash_attention, t_attn.reference_attention):
+        x = [_t(a).requires_grad_() for a in (q, k, v)]
+        fn(*x, causal=causal, segment_ids=seg_t).backward(_t(do))
+        grads.append([a.grad for a in x])
+    for g, w in zip(*grads):
+        _close(g, w)
+
+
+def test_attention_dispatcher():
+    rng = np.random.default_rng(9)
+    q, k, v = (_t(a) for a in _qkv(rng, 12, 12))
+    want = t_attn.reference_attention(q, k, v, causal=True)
+    for impl in (None, "flash", "reference"):
+        _close(t_attn.attention(q, k, v, causal=True, impl=impl), want)
+    for impl in ("ring", "ulysses"):
+        with pytest.raises(NotImplementedError, match="item 9"):
+            t_attn.attention(q, k, v, impl=impl)
+    with pytest.raises(ValueError, match="unknown"):
+        t_attn.attention(q, k, v, impl="splash")
 
 
 def test_reference_attention_matches_jax():
