@@ -1,12 +1,17 @@
 #!/usr/bin/env python3
 """Smoke run of ray_tpu_torch on one NVIDIA H100.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
-Phases (any failure exits non-zero; nothing is caught):
+Phases (any failure exits non-zero; nothing is caught). Each runs under a
+watchdog (`run_phase`): a phase still running at its deadline in
+DEADLINES_S, such as a kernel spinning on a barrier, ends the run with
+every thread's traceback and exit code 1.
 1. device: needs a CUDA card; prints its name and power limit;
-2. build: compiles every kernel of the serving path with nvcc for sm_90a
-   and prints the ptxas register/shared-memory summary;
+2. build: compiles every kernel with nvcc for sm_90a, prints the ptxas
+   register/shared-memory summary and, from `cuobjdump -sass`, each entry
+   function's count of wgmma (HGMMA) and TMA load (UTMALDG) instructions;
+   the bf16 K2 and K4 kernels must have both;
 3. kernels: each kernel against its plain PyTorch version at Llama-3-8B
    shapes in bf16 (max error against a stated tolerance), with CUDA-event
    times of the kernel, the plain version and one PyTorch library call;
@@ -32,14 +37,24 @@ Phases (any failure exits non-zero; nothing is caught):
 8. train reference: at llama-1b width with 2 layers in float32, one step
    on the card and on the CPU's plain path from the same parameters must
    give the same loss, grad norm and updated parameters.
+With `--parent DIR` (a directory holding an earlier commit's tree, for
+example unpacked by `git archive` into the ignored `_archive/`), phases 3
+and 6 also build that tree's flash_fwd.cu and flash_bwd.cu and time its
+K2 and K4 on the same inputs, in turns with the current ones.
 Then one JSON line of per-kernel numbers, and as the last line
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import argparse
+import ctypes
+import faulthandler
 import json
 import math
+import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -81,8 +96,32 @@ ATOL_PARAM_F32 = 1e-6
 NOISY_GRAD = 1e-6
 
 
+# Each phase's deadline in seconds: about five times its time on an H100
+# (logged by run_phase: build 24.8 s with the earlier tree's K2 and K4,
+# kernels 3.1, engine 52.0, reference 7.8, train_kernels 3.2, trainer
+# 6.1, train_reference 5.9), and at least 30 s
+DEADLINES_S = {"device": 30, "build": 120, "kernels": 30, "engine": 240,
+               "reference": 45, "train_kernels": 30, "trainer": 45,
+               "train_reference": 45}
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def run_phase(name: str, deadline_s: float, fn, *args, **kwargs):
+    """fn(*args, **kwargs) under a watchdog: if it has not returned after
+    deadline_s seconds, faulthandler prints every thread's traceback and
+    ends the process with exit code 1."""
+    log(f"phase {name} (deadline {deadline_s} s)")
+    t0 = time.perf_counter()
+    faulthandler.dump_traceback_later(deadline_s, exit=True)
+    try:
+        out = fn(*args, **kwargs)
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+    log(f"phase {name} took {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def time_ms(fn, iters: int = 10, warmup: int = 2, flush=None) -> float:
@@ -104,6 +143,26 @@ def time_ms(fn, iters: int = 10, warmup: int = 2, flush=None) -> float:
     return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
 
 
+def time_windows(fn, iters: int = 20, windows: int = 3) -> list:
+    """Mean time of fn() in each of `windows` runs of `iters` back-to-back
+    calls between two CUDA events (no flush), after 2 warm-up calls."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    out = []
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(end) / iters)
+    return out
+
+
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
@@ -112,6 +171,116 @@ def close_bf16(got, want) -> bool:
     diff = (got.float() - want.float()).abs()
     return bool((diff <= ATOL_O_BF16 + RTOL_O_BF16 * want.float().abs())
                 .all())
+
+
+# the earlier tree's K2 and K4 libraries (--parent), else None
+PARENT = None
+
+
+def build_parent(root: str) -> dict:
+    """Build an earlier tree's flash_fwd.cu and flash_bwd.cu (under
+    root/ray_tpu_torch/ops/csrc) into root/_build, in parallel; returns the
+    loaded libraries, whose entry points take the current arguments."""
+    from ray_tpu_torch.ops import _build
+
+    csrc = os.path.join(root, "ray_tpu_torch", "ops", "csrc")
+    out_dir = os.path.join(root, "_build")
+    os.makedirs(out_dir, exist_ok=True)
+    procs = {}
+    for name in ("flash_fwd", "flash_bwd"):
+        path = os.path.join(out_dir, f"libparent_{name}.so")
+        procs[name] = (path, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", path,
+             os.path.join(csrc, _build.SOURCES[name])],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (path, proc) in procs.items():
+        report, _ = proc.communicate()
+        assert proc.returncode == 0, f"parent {name} build failed:\n{report}"
+        lib = ctypes.CDLL(path)
+        for fn_name, argtypes in _build.SIGNATURES[name].items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        libs[name] = lib
+    return libs
+
+
+def parent_fwd(torch, q, k, v, causal, q_seg, kv_seg, scale):
+    """The earlier tree's K2, called as the wrapper calls the current one."""
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    o = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, sq, hq), dtype=torch.float32, device=q.device)
+    code = PARENT["flash_fwd"].flash_fwd(
+        fa._DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        o.data_ptr(), lse.data_ptr(), fa._ptr(q_seg), fa._ptr(kv_seg), b, sq,
+        sk, hq, hkv, d, fa._strides(q, k, v, o), int(causal), float(scale),
+        torch.cuda.current_stream().cuda_stream)
+    assert code == 0, f"parent flash_fwd: cudaError {code}"
+    return o, lse
+
+
+def parent_dkv(torch, q, k, v, do, lse, delta, causal, q_seg, kv_seg,
+               scale):
+    """The earlier tree's K4, called as the wrapper calls the current one."""
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    dk = torch.empty((b, sk, hkv, d), dtype=k.dtype, device=k.device)
+    dv = torch.empty((b, sk, hkv, d), dtype=v.dtype, device=v.device)
+    code = PARENT["flash_bwd"].flash_bwd_dkv(
+        fa._DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), fa._ptr(q_seg),
+        fa._ptr(kv_seg), dk.data_ptr(), dv.data_ptr(), b, sq, sk, hq, hkv, d,
+        fa._strides(q, k, v, do), int(causal), float(scale),
+        torch.cuda.current_stream().cuda_stream)
+    assert code == 0, f"parent flash_bwd_dkv: cudaError {code}"
+    return dk, dv
+
+
+def timed(fn, flush, parent_fn=None):
+    """(ms, parent_ms): fn's time by time_ms; with the earlier tree's
+    version, both in turns (current, earlier, earlier, current), each the
+    mean of its two."""
+    if parent_fn is None:
+        return time_ms(fn, flush=flush), None
+    t = [time_ms(f, flush=flush) for f in (fn, parent_fn, parent_fn, fn)]
+    return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+
+
+def check_sass(_build) -> None:
+    """Count wgmma (HGMMA) and TMA load (UTMALDG) instructions per entry
+    function of the built K2 and K4 libraries; the bf16 K2 and K4 kernels
+    must have both, and no mma.sync design of either may remain."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    counts = {}
+    for name in ("flash_fwd", "flash_bwd"):
+        sass = subprocess.run([tool, "-sass", _build._lib_path(name)],
+                              check=True, capture_output=True,
+                              text=True).stdout
+        fn = None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                fn = m.group(1)
+                counts[fn] = {"HGMMA": 0, "UTMALDG": 0}
+            elif fn is not None:
+                for op in ("HGMMA", "UTMALDG"):
+                    counts[fn][op] += op in line
+    for fn, c in sorted(counts.items()):
+        log(f"  sass {fn}: HGMMA {c['HGMMA']}, UTMALDG {c['UTMALDG']}")
+    for key in ("flash_fwd_wgmma", "bwd_dkv_wgmma"):
+        fns = [fn for fn in counts if key in fn]
+        assert fns, f"no {key} entry function in the built libraries"
+        for fn in fns:
+            assert counts[fn]["HGMMA"] > 0 and counts[fn]["UTMALDG"] > 0, \
+                f"{fn} has no wgmma or no TMA load"
+    old = [fn for fn in counts if "flash_fwd_mma" in fn or "bwd_dkv_mma" in fn]
+    assert not old, f"an mma.sync design of K2 or K4 remains: {old}"
 
 
 def check_kernels(torch, flush):
@@ -161,7 +330,8 @@ def check_kernels(torch, flush):
         + bt.numel() * 4 + lens.numel() * 4
     k1_flops = 4 * sum(lengths) * hq * d
     results["paged_decode"] = dict(
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+        max_abs_err=err, ms=ms, parent_ms=None, plain_ms=plain_ms,
+        library_ms=None,
         bytes=k1_bytes, flops=k1_flops)
 
     # ---- K2 self part: B=4, S=512, causal
@@ -182,10 +352,12 @@ def check_kernels(torch, flush):
     k_t = ks.repeat_interleave(hq // hkv, dim=2).transpose(1, 2).contiguous()
     v_t = vs.repeat_interleave(hq // hkv, dim=2).transpose(1, 2).contiguous()
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    ms, parent_ms = timed(
+        lambda: flash_attention(qs, ks, vs, causal=True, return_lse=True),
+        flush, PARENT and (lambda: parent_fwd(torch, qs, ks, vs, True, None,
+                                              None, scale)))
     results["flash_fwd_self"] = dict(
-        max_abs_err=max(err_o, err_l),
-        ms=time_ms(lambda: flash_attention(qs, ks, vs, causal=True,
-                                           return_lse=True), flush=flush),
+        max_abs_err=max(err_o, err_l), ms=ms, parent_ms=parent_ms,
         plain_ms=time_ms(lambda: flash_attention_plain(
             qs, ks, vs, causal=True, q_seg=None, kv_seg=None, scale=scale),
             flush=flush),
@@ -223,11 +395,13 @@ def check_kernels(torch, flush):
     v_t = vc.repeat_interleave(hq // hkv, dim=2).transpose(1, 2).contiguous()
     mask = (q_seg[:, None, :, None] == kv_seg[:, None, None, :])
     live = sum(ctx)  # kv rows the segment mask lets through
+    ms, parent_ms = timed(
+        lambda: flash_attention(qc, kc, vc, causal=False,
+                                segment_ids=(q_seg, kv_seg), return_lse=True),
+        flush, PARENT and (lambda: parent_fwd(torch, qc, kc, vc, False, q_seg,
+                                              kv_seg, scale)))
     results["flash_fwd_ctx"] = dict(
-        max_abs_err=max(err_o, err_l),
-        ms=time_ms(lambda: flash_attention(
-            qc, kc, vc, causal=False, segment_ids=(q_seg, kv_seg),
-            return_lse=True), flush=flush),
+        max_abs_err=max(err_o, err_l), ms=ms, parent_ms=parent_ms,
         plain_ms=time_ms(lambda: flash_attention_plain(
             qc, kc, vc, causal=False, q_seg=q_seg, kv_seg=kv_seg,
             scale=scale), flush=flush),
@@ -242,15 +416,22 @@ def check_kernels(torch, flush):
 
 def add_bounds(results):
     """Each kernel's bound: the larger of its bytes over the card's memory
-    rate and its FLOPs over the bf16 tensor-core peak."""
+    rate and its FLOPs over the bf16 tensor-core peak; its rate and its
+    share of the bound."""
     for name, r in results.items():
         r["bound_ms"] = 1e3 * max(r["bytes"] / HBM_BYTES_PER_S,
                                   r["flops"] / BF16_FLOPS)
         r["bound_by"] = ("bytes" if r["bytes"] / HBM_BYTES_PER_S
                          >= r["flops"] / BF16_FLOPS else "operations")
-        log(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}"
-            f" ms, library {r['library_ms']} ms, bound {r['bound_ms']:.4f}"
-            f" ms ({r['bound_by']})")
+        r["tflops"] = r["flops"] / r["ms"] / 1e9
+        r["bound_share"] = r["bound_ms"] / r["ms"]
+        parent = ("" if r["parent_ms"] is None else
+                  f", earlier tree {r['parent_ms']:.4f} ms "
+                  f"({r['flops'] / r['parent_ms'] / 1e9:.1f} TFLOP/s)")
+        log(f"  {name}: kernel {r['ms']:.4f} ms ({r['tflops']:.1f} TFLOP/s, "
+            f"{100 * r['bound_share']:.1f}% of the bound){parent}, plain "
+            f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
 
 
 def check_training_kernels(torch, flush):
@@ -312,15 +493,20 @@ def check_training_kernels(torch, flush):
     (q, k, v, do, o, lse, delta, kw), errs = run("train kernels, causal",
                                                  s, s, None)
 
-    # SDPA yardsticks on the same inputs: forward, and the backward of one
-    # call (dq, dk and dv together)
+    # SDPA yardsticks on the same inputs: forward, and the backward alone
+    # (dq, dk and dv in one call) over one prebuilt forward, 20 calls
+    # back to back between the events so the host's launches overlap the
+    # device's work, in three windows
     sdpa = torch.nn.functional.scaled_dot_product_attention
     q_t, k_t, v_t = (x.transpose(1, 2).detach().requires_grad_()
                      for x in (q, k, v))
     out_t = sdpa(q_t, k_t, v_t, is_causal=True, enable_gqa=True)
     do_t = do.transpose(1, 2)
-    sdpa_bwd_ms = time_ms(lambda: torch.autograd.grad(
-        out_t, (q_t, k_t, v_t), do_t, retain_graph=True), flush=flush)
+    bwd_windows = time_windows(lambda: torch.autograd.grad(
+        out_t, (q_t, k_t, v_t), do_t, retain_graph=True))
+    sdpa_bwd_ms = sorted(bwd_windows)[1]
+    log(f"  SDPA backward alone, ms per call in 3 windows of 20: "
+        f"{[round(t, 4) for t in bwd_windows]} (median {sdpa_bwd_ms:.4f})")
     with torch.no_grad():
         sdpa_fwd_ms = time_ms(lambda: sdpa(q_t, k_t, v_t, is_causal=True,
                                            enable_gqa=True), flush=flush)
@@ -329,18 +515,31 @@ def check_training_kernels(torch, flush):
     live = b * hq * s * (s + 1) // 2   # (q, k) pairs under the causal mask
     qb, kb = q.numel() * 2, k.numel() * 2  # bytes of q (= do, o) and k (= v)
     vec = lse.numel() * 4
+    fwd_ms, fwd_parent_ms = timed(
+        lambda: flash_attention(q, k, v, causal=True, return_lse=True),
+        flush, PARENT and (lambda: parent_fwd(torch, q, k, v, True, None,
+                                              None, scale)))
+    dkv_ms, dkv_parent_ms = timed(
+        lambda: flash_bwd_dkv(q, k, v, do, lse, delta, **kw), flush,
+        PARENT and (lambda: parent_dkv(torch, q, k, v, do, lse, delta, True,
+                                       None, None, scale)))
+    if PARENT is not None:  # the earlier tree computes the same function
+        dk_old, dv_old = parent_dkv(torch, q, k, v, do, lse, delta, True,
+                                    None, None, scale)
+        dk_new, dv_new = flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+        log(f"  earlier tree's K4 against the current one: max|dk| diff "
+            f"{max_err(dk_old, dk_new):.3e}, max|dv| diff "
+            f"{max_err(dv_old, dv_new):.3e}")
     results = {
         "flash_fwd_train": dict(
-            max_abs_err=max(errs["o"], errs["lse"]),
-            ms=time_ms(lambda: flash_attention(q, k, v, causal=True,
-                                               return_lse=True),
-                       flush=flush),
+            max_abs_err=max(errs["o"], errs["lse"]), ms=fwd_ms,
+            parent_ms=fwd_parent_ms,
             plain_ms=time_ms(lambda: flash_attention_plain(q, k, v, **kw),
                              flush=flush),
             library_ms=sdpa_fwd_ms,
             bytes=2 * qb + 2 * kb + vec, flops=2 * 2 * d * live),
         "flash_bwd_dq": dict(
-            max_abs_err=errs["dq"],
+            max_abs_err=errs["dq"], parent_ms=None,
             ms=time_ms(lambda: flash_bwd_dq(q, k, v, do, lse, delta, **kw),
                        flush=flush),
             plain_ms=time_ms(lambda: flash_bwd_dq_plain(
@@ -348,15 +547,14 @@ def check_training_kernels(torch, flush):
             library_ms=sdpa_bwd_ms,
             bytes=3 * qb + 2 * kb + 2 * vec, flops=3 * 2 * d * live),
         "flash_bwd_dkv": dict(
-            max_abs_err=max(errs["dk"], errs["dv"]),
-            ms=time_ms(lambda: flash_bwd_dkv(q, k, v, do, lse, delta, **kw),
-                       flush=flush),
+            max_abs_err=max(errs["dk"], errs["dv"]), ms=dkv_ms,
+            parent_ms=dkv_parent_ms,
             plain_ms=time_ms(lambda: flash_bwd_dkv_plain(
                 q, k, v, do, lse, delta, **kw), flush=flush),
             library_ms=sdpa_bwd_ms,
             bytes=2 * qb + 4 * kb + 2 * vec, flops=4 * 2 * d * live)}
     log(f"  SDPA (is_causal, enable_gqa): forward {sdpa_fwd_ms:.4f} ms, "
-        f"backward (dq, dk, dv in one call) {sdpa_bwd_ms:.4f} ms")
+        f"backward alone (dq, dk, dv in one call) {sdpa_bwd_ms:.4f} ms")
     add_bounds(results)
     return results
 
@@ -816,17 +1014,8 @@ def check_reference(torch):
     return err
 
 
-def main() -> int:
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
-    from ray_tpu_torch.ops import _build
-    from ray_tpu_torch.ops.flash_attention import flash_attention
-    from ray_tpu_torch.ops.paged_attention import paged_attention_decode
-
-    # 1. device
+def device_info(torch):
+    """Phase 1: the card's name and power limit."""
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -835,8 +1024,15 @@ def main() -> int:
     log(f"device: {name} (torch {torch.__version__}, cuda "
         f"{torch.version.cuda})")
     log(smi)
+    return name, smi
 
-    # 2. build every kernel, in parallel, from the checkout's sources
+
+def build(parent):
+    """Phase 2: every kernel from the checkout's sources, in parallel; the
+    SASS check; the earlier tree's K2 and K4 with --parent."""
+    global PARENT
+    from ray_tpu_torch.ops import _build
+
     t0 = time.perf_counter()
     reports = _build.build_all(force=True)
     log(f"built {sorted(reports)} with nvcc {' '.join(_build.NVCC_FLAGS)} "
@@ -846,10 +1042,37 @@ def main() -> int:
             if "Compiling entry function" in line or "Used" in line \
                     or "spill" in line:
                 log(f"  [{kname}] {line.strip()}")
+    check_sass(_build)
+    if parent:
+        t0 = time.perf_counter()
+        PARENT = build_parent(parent)
+        log(f"built the earlier tree's K2 and K4 from {parent} in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--parent", default=None,
+                        help="an earlier tree whose K2 and K4 are timed "
+                        "beside the current ones")
+    args = parser.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from ray_tpu_torch.ops.flash_attention import flash_attention
+    from ray_tpu_torch.ops.paged_attention import paged_attention_decode
+
+    # 1. device; 2. build
+    name, smi = run_phase("device", DEADLINES_S["device"], device_info,
+                          torch)
+    run_phase("build", DEADLINES_S["build"], build, args.parent)
 
     # 3. kernels against their plain versions
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
-    kernels = check_kernels(torch, flush)
+    kernels = run_phase("kernels", DEADLINES_S["kernels"], check_kernels,
+                        torch, flush)
     del flush
 
     # 4. the main path
@@ -858,28 +1081,33 @@ def main() -> int:
         flash_attention.launches = 0
         flash_attention.segment_launches = 0
 
-    engine, eng = run_engine(torch, flush_counts)
-    counts = {"paged_decode": paged_attention_decode.launches,
-              "flash_fwd_self": flash_attention.launches
-              - flash_attention.segment_launches,
-              "flash_fwd_ctx": flash_attention.segment_launches}
-    log(f"engine: TTFT ms {json.dumps(eng['ttft_ms'])}")
-    log(f"engine: decode {eng['decode_tok_s']:.1f} tok/s over "
-        f"{eng['wall_s']:.2f} s wall; stats {json.dumps(eng['stats'])}")
-    log(f"engine: kernel launches {json.dumps(counts)}")
-    for kname, c in counts.items():
-        assert c > 0, f"{kname} was never launched on the main path"
-    eng["steady"] = profile_decode(torch, engine)
-    eng["prefill_wave"] = profile_prefill(torch, engine)
-    del engine
+    def engine_phase():
+        engine, eng = run_engine(torch, flush_counts)
+        counts = {"paged_decode": paged_attention_decode.launches,
+                  "flash_fwd_self": flash_attention.launches
+                  - flash_attention.segment_launches,
+                  "flash_fwd_ctx": flash_attention.segment_launches}
+        log(f"engine: TTFT ms {json.dumps(eng['ttft_ms'])}")
+        log(f"engine: decode {eng['decode_tok_s']:.1f} tok/s over "
+            f"{eng['wall_s']:.2f} s wall; stats {json.dumps(eng['stats'])}")
+        log(f"engine: kernel launches {json.dumps(counts)}")
+        for kname, c in counts.items():
+            assert c > 0, f"{kname} was never launched on the main path"
+        eng["steady"] = profile_decode(torch, engine)
+        eng["prefill_wave"] = profile_prefill(torch, engine)
+        return counts, eng
+
+    counts, eng = run_phase("engine", DEADLINES_S["engine"], engine_phase)
     torch.cuda.empty_cache()
 
     # 5. reference check
-    logits_err = check_reference(torch)
+    logits_err = run_phase("reference", DEADLINES_S["reference"],
+                           check_reference, torch)
 
     # 6. training kernels against their plain versions
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
-    kernels.update(check_training_kernels(torch, flush))
+    kernels.update(run_phase("train_kernels", DEADLINES_S["train_kernels"],
+                             check_training_kernels, torch, flush))
     del flush
     torch.cuda.empty_cache()
 
@@ -889,12 +1117,15 @@ def main() -> int:
         flash_attention.dq_launches = 0
         flash_attention.dkv_launches = 0
 
-    train = run_trainer(torch, reset_train_counts)
+    train = run_phase("trainer", DEADLINES_S["trainer"], run_trainer, torch,
+                      reset_train_counts)
     counts.update(train.pop("launches"))
     torch.cuda.empty_cache()
 
     # 8. one float32 step, card against CPU
-    train["reference"] = check_train_reference(torch)
+    train["reference"] = run_phase("train_reference",
+                                   DEADLINES_S["train_reference"],
+                                   check_train_reference, torch)
 
     sources = {"paged_decode": ("ray_tpu_torch/ops/csrc/paged_decode.cu",
                                 "ray_tpu/ops/paged_attention.py:138"),
@@ -913,14 +1144,16 @@ def main() -> int:
          "replaces": sources[kname][1], "launches": counts[kname],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-         "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+         "tflops": r["tflops"], "bound_share": r["bound_share"],
+         "parent_ms": r["parent_ms"]}
         for kname, r in kernels.items()],
         "engine": {"ttft_ms": eng["ttft_ms"],
                    "decode_tok_s": eng["decode_tok_s"],
                    "wall_s": eng["wall_s"], "steady": eng["steady"],
                    "prefill_wave": eng["prefill_wave"],
                    "f32_logits_max_abs_err": logits_err},
-        "train": train}
+        "train": train, "card": smi}
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

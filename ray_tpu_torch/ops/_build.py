@@ -3,8 +3,11 @@
 Each source under ``csrc/`` is compiled on first use by ``nvcc`` for
 Hopper (``sm_90a``) into a shared library with a plain C interface, then
 loaded with ``ctypes``. Pointers and the stream are passed as
-``c_void_p``; every entry point returns ``cudaGetLastError()``, and
-``check`` raises on a non-zero code. Libraries go to ``_build/`` beside
+``c_void_p``; every entry point returns ``cudaGetLastError()`` (or the
+error of encoding a TMA tensor map), and ``check`` raises on a non-zero
+code. The bf16 kernels K2 and K4 encode their tensor maps with
+``cuTensorMapEncodeTiled``, reached through ``cudaGetDriverEntryPoint``,
+so no library links ``-lcuda``. Libraries go to ``_build/`` beside
 this package (listed in ``.gitignore``) and are rebuilt when a source or
 header is newer than the library. ``build_all`` starts one ``nvcc`` per
 source at once and returns each one's ``-Xptxas -v`` report.
@@ -71,7 +74,7 @@ def _stale(name: str) -> bool:
     if not os.path.exists(lib):
         return True
     built = os.path.getmtime(lib)
-    deps = [SOURCES[name], "common.cuh"]
+    deps = [SOURCES[name], "common.cuh", "hopper.cuh"]
     return any(os.path.getmtime(os.path.join(_CSRC, f)) > built for f in deps)
 
 

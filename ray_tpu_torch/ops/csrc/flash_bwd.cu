@@ -27,18 +27,23 @@
 //     tiles from the causal start, so dk and dv accumulate for the whole
 //     GQA group in float32 registers: the TPU version's per-q-head f32
 //     partials [B, Hq, Sk, D] and their group sum never touch HBM.
-// Two variants each, chosen by the input type, as in K2: bf16 on the
-// tensor cores (mma.sync m16n8k16, float32 accumulators, 4 warps x 16
-// rows; p and ds go from the accumulators into the next product's A
-// fragments in registers, rounded to bf16 as the TPU kernel rounds them),
-// and an exact scalar-FMA float32 variant (256 threads, 4x4 patches).
-// Not done yet: wgmma and TMA, cp.async double buffering, ldmatrix
-// (transposed tiles are staged by scalar stores), and one fused kernel
-// writing dq by atomics (FlashAttention-2's layout) instead of two passes.
-#include "common.cuh"
+// Two variants each, chosen by the input type, as in K2: an exact
+// scalar-FMA float32 variant (256 threads, 4x4 patches) and, in bf16,
+//   - K3 on mma.sync m16n8k16 (float32 accumulators, 4 warps x 16 rows;
+//     ds goes from the accumulators into the next product's A fragments
+//     in registers, rounded to bf16 as the TPU kernel rounds it; K staged
+//     transposed by scalar stores);
+//   - K4 built for Hopper: wgmma with TMA through an mbarrier ring, and
+//     no transposed copy (see bwd_dkv_wgmma).
+// Not done yet: K3 on wgmma and TMA; warp specialisation of K4 (a
+// producer warp, two consumer warpgroups, setmaxnreg) and overlapping one
+// item's exp with the next item's products; one fused kernel writing dq
+// by atomics (FlashAttention-2's layout) instead of two passes.
+#include "hopper.cuh"
 
 namespace {
 
+using bf16 = __nv_bfloat16;
 constexpr int kBQ = 64;       // q rows per tile
 constexpr int kBK = 64;       // kv rows per tile
 constexpr int kThreads = 256;  // scalar variant: a 16 x 16 thread grid
@@ -372,9 +377,8 @@ __global__ void __launch_bounds__(kThreads) bwd_dkv_f32(BwdParams p) {
 //                       A[g+8][2t+8..]};
 //   B 16x8 "col": {B[2t..2t+1][g], B[2t+8..2t+9][g]} (k pairs per column);
 //   C 16x8: {C[g][2t], C[g][2t+1], C[g+8][2t], C[g+8][2t+1]}.
-// A product whose B runs along the tile's rows (K for dq, dO and Q for
-// dv and dk) reads a transposed copy staged in shared memory.
-using bf16 = __nv_bfloat16;
+// K3's dq product, whose B runs along the K tile's rows, reads a
+// transposed copy staged in shared memory.
 
 __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
                                          uint32_t b0, uint32_t b1) {
@@ -383,11 +387,6 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo: low half
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
@@ -554,122 +553,189 @@ __global__ void __launch_bounds__(kMmaThreads) bwd_dq_mma(BwdParams p) {
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads) bwd_dkv_mma(BwdParams p) {
-  constexpr int QS = D + 8;    // row stride of the row-major tiles
-  constexpr int TS = kBQ + 8;  // row stride of the transposed Q, dO tiles
-  constexpr int KK = D / 16;
-  constexpr int NT = kBQ / 8;  // n8 tiles of a 64-wide q column block
-  constexpr int DT = D / 8;
+// ---------------------------------------------------------------------
+// K4 for Hopper, bf16: wgmma on operands in shared memory, filled by TMA
+// through an mbarrier ring. One warpgroup (128 threads) per (64-row kv
+// tile, kv head, batch row); warp w owns kv rows 16w..16w+15. K and V are
+// loaded once. The (group head, q tile) items from the causal start
+// stream through kStages ring slots: thread 0 loads each Q and dO tile by
+// TMA, and the threads stage its lse (times log2(e)), delta and q segment
+// ids beside it. Per item:
+//   S^T = K Q^T and dP^T = V dO^T: wgmma, all four operands K-major as
+//     stored;
+//   p^T = exp2(s^T scale log2(e) - lse log2(e)), zeroed for a masked pair
+//     without taking its exp (masks tested only on tiles that need them),
+//     and ds^T = p^T (dp^T - delta) scale, on the accumulator registers;
+//   dV += P^T dO and dK += dS^T Q: wgmma with P^T and dS^T rounded to
+//     bf16 in registers as the A operand (as the TPU kernel rounds them),
+//     dO and Q MN-major through the transpose bit: no transposed copy.
+// dK and dV stay in float32 registers for the whole GQA group. The grid
+// runs the heaviest blocks first: kv tile 0 of every (kv head, batch
+// row), then tile 1, ...
+constexpr int kWgThreads = 128;
+constexpr int kStages = 2;  // ring slots of (Q, dO, lse, delta, q segments)
+constexpr float kLog2e = 1.4426950408889634f;
 
-  const int kt = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+template <int D>
+struct DkvSmem {  // byte offsets into the 1024-aligned shared memory
+  static constexpr int tile = 64 * D * 2;  // one [64][D] bf16 tile
+  static constexpr int k = 0, v = tile;
+  static constexpr int q = 2 * tile;                  // kStages Q tiles
+  static constexpr int dout = q + kStages * tile;     // kStages dO tiles
+  static constexpr int vec = dout + kStages * tile;   // [kStages][3][kBQ]
+  static constexpr int bars = vec + kStages * 3 * kBQ * 4;  // K/V, stages
+  static constexpr int bytes = bars + (1 + kStages) * 8;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kWgThreads)
+bwd_dkv_wgmma(const __grid_constant__ CUtensorMap kmap,
+              const __grid_constant__ CUtensorMap vmap,
+              const __grid_constant__ CUtensorMap qmap,
+              const __grid_constant__ CUtensorMap omap, BwdParams p, int B) {
+  using L = DkvSmem<D>;
+  constexpr int NO = D / 2;  // dk (and dv) accumulators per thread
+  constexpr int KK = D / 16;
+  const int kt = blockIdx.x / (p.hkv * B), rest = blockIdx.x % (p.hkv * B);
+  const int hk = rest % p.hkv, b = rest / p.hkv;
   const int rep = p.hq / p.hkv;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, tq = lane & 3;
-  const int k0 = kt * kBK, r0 = warp * 16;
+  const int k0 = kt * kBK, offset = p.sk - p.sq;
+  const int qb0 = first_q_tile(p, k0);
+  const int per_head = (p.sq + kBQ - 1) / kBQ - qb0;
+  const int n_items = rep * per_head;
+  const float scale_log2 = p.scale * kLog2e;
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);  // [kBK][QS]
-  bf16* v_s = k_s + kBK * QS;                     // [kBK][QS]
-  bf16* q_s = v_s + kBK * QS;                     // [kBQ][QS]
-  bf16* do_s = q_s + kBQ * QS;                    // [kBQ][QS]
-  bf16* qt_s = do_s + kBQ * QS;                   // [D][TS]
-  bf16* dot_s = qt_s + D * TS;                    // [D][TS]
-  float* lse_s = reinterpret_cast<float*>(dot_s + D * TS);  // [kBQ]
-  float* delta_s = lse_s + kBQ;                             // [kBQ]
-  int* qseg_s = reinterpret_cast<int*>(delta_s + kBQ);      // [kBQ]
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_smem(smem_raw);
+  unsigned char* k_s = smem + L::k;
+  unsigned char* v_s = smem + L::v;
+  unsigned char* q_s = smem + L::q;
+  unsigned char* do_s = smem + L::dout;
+  float* vec_s = reinterpret_cast<float*>(smem + L::vec);
+  uint64_t* kvbar = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* full = kvbar + 1;
 
-  const bf16* k = static_cast<const bf16*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const bf16* v = static_cast<const bf16*>(p.v) + b * p.v_sb + hk * p.v_sh;
-  stage<D, kBK>(k_s, nullptr, k, p.k_ss, k0, p.sk, tid);
-  stage<D, kBK>(v_s, nullptr, v, p.v_ss, k0, p.sk, tid);
+  // item i: q head hk * rep + i / per_head, q tile qb0 + i % per_head
+  auto load_tiles = [&](int i, int slot) {
+    const int h = hk * rep + i / per_head;
+    const int q0 = (qb0 + i % per_head) * kBQ;
+    mbar_expect_tx(&full[slot], 2 * L::tile);
+    tma_load_tile<D, kBQ>(q_s + slot * L::tile, &qmap, &full[slot], q0, h, b);
+    tma_load_tile<D, kBQ>(do_s + slot * L::tile, &omap, &full[slot], q0, h,
+                          b);
+  };
+  auto load_vecs = [&](int i, int slot) {  // threads 0..kBQ-1
+    const int h = hk * rep + i / per_head;
+    const int qpos = (qb0 + i % per_head) * kBQ + tid;
+    const bool in = qpos < p.sq;
+    float* v = vec_s + slot * 3 * kBQ;
+    v[tid] = in ? p.lse[row_index(p, b, qpos, h)] * kLog2e : 0.f;
+    v[kBQ + tid] = in ? p.delta[row_index(p, b, qpos, h)] : 0.f;
+    reinterpret_cast<int*>(v)[2 * kBQ + tid] =
+        in && p.qseg != nullptr ? p.qseg[(size_t)b * p.sq + qpos] : 0;
+  };
 
-  // this thread's two kv rows: k0 + r0 + g and k0 + r0 + g + 8
+  if (tid == 0) {
+    mbar_init(kvbar, 1);
+    for (int s = 0; s < kStages; ++s) mbar_init(&full[s], 1);
+    mbar_fence_init();
+    mbar_expect_tx(kvbar, 2 * L::tile);
+    tma_load_tile<D, kBK>(k_s, &kmap, kvbar, k0, hk, b);
+    tma_load_tile<D, kBK>(v_s, &vmap, kvbar, k0, hk, b);
+    for (int s = 0; s < kStages && s < n_items; ++s) load_tiles(s, s);
+  }
+  if (tid < kBQ)
+    for (int s = 0; s < kStages && s < n_items; ++s) load_vecs(s, s);
+
+  // this thread's two kv rows: k0 + 16 warp + g and 8 below
   int kpos[2], ks[2];
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) {
-    kpos[rr] = k0 + r0 + g + 8 * rr;
+    kpos[rr] = k0 + warp * 16 + g + 8 * rr;
     ks[rr] = p.kseg != nullptr
                  ? p.kseg[(size_t)b * p.sk + min(kpos[rr], p.sk - 1)] : 0;
   }
-  float dk[DT][4], dv[DT][4];
+  float dk[NO], dv[NO], s[32], dp[32];
 #pragma unroll
-  for (int t = 0; t < DT; ++t)
+  for (int i = 0; i < NO; ++i) dk[i] = dv[i] = 0.f;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dk[t][e] = dv[t][e] = 0.f;
+  for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+  __syncthreads();  // barriers initialised, first vectors staged
+  mbar_wait(kvbar, 0);
 
-  const int qb0 = first_q_tile(p, k0);
-  const int n_qb = (p.sq + kBQ - 1) / kBQ;
-  for (int r = 0; r < rep; ++r) {
-    const int h = hk * rep + r;
-    const bf16* q = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
-    const bf16* dout =
-        static_cast<const bf16*>(p.dout) + b * p.o_sb + h * p.o_sh;
-    for (int qb = qb0; qb < n_qb; ++qb) {
-      const int q0 = qb * kBQ;
-      __syncthreads();  // the previous tile is done with q_s ... qseg_s
-      stage<D, kBQ>(q_s, qt_s, q, p.q_ss, q0, p.sq, tid);
-      stage<D, kBQ>(do_s, dot_s, dout, p.o_ss, q0, p.sq, tid);
-      if (tid < kBQ) {
-        const int qpos = q0 + tid;
-        const bool in = qpos < p.sq;
-        lse_s[tid] = in ? p.lse[row_index(p, b, qpos, h)] : 0.f;
-        delta_s[tid] = in ? p.delta[row_index(p, b, qpos, h)] : 0.f;
-        qseg_s[tid] = in && p.qseg != nullptr
-                          ? p.qseg[(size_t)b * p.sq + qpos] : 0;
-      }
-      __syncthreads();
+  for (int i = 0; i < n_items; ++i) {
+    const int st = i % kStages;
+    const int q0 = (qb0 + i % per_head) * kBQ;
+    const unsigned char* qt = q_s + st * L::tile;
+    const unsigned char* ot = do_s + st * L::tile;
+    const float* lse_s = vec_s + st * 3 * kBQ;
+    const float* delta_s = lse_s + kBQ;
+    const int* qseg_s = reinterpret_cast<const int*>(delta_s + kBQ);
+    mbar_wait(&full[st], (i / kStages) & 1);
 
-      // S^T = K Q^T and dP^T = V dO^T: this warp's 16 kv rows x 64 q cols
-      float s[NT][4], dp[NT][4];
+    // S^T = K Q^T and dP^T = V dO^T
+    wgmma_fence();
+    fence_regs<32>(s);
+    fence_regs<32>(dp);
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
+    for (int kk = 0; kk < KK; ++kk)
+      wgmma_ss<64>(s, desc_kmajor<D, kBK>(k_s, kk),
+                   desc_kmajor<D, kBQ>(qt, kk), kk > 0);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+    for (int kk = 0; kk < KK; ++kk)
+      wgmma_ss<64>(dp, desc_kmajor<D, kBK>(v_s, kk),
+                   desc_kmajor<D, kBQ>(ot, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<32>(s);
+    fence_regs<32>(dp);
+
+    // P^T over S^T, dS^T over dP^T
+    const bool need_mask = p.kseg != nullptr || q0 + kBQ > p.sq ||
+                           k0 + kBK > p.sk ||
+                           (p.causal && k0 + kBK - 1 > q0 + offset);
 #pragma unroll
-      for (int kk = 0; kk < KK; ++kk) {
-        uint32_t ka[4], va[4];
-        load_a(ka, k_s, QS, r0, kk * 16, g, tq);
-        load_a(va, v_s, QS, r0, kk * 16, g, tq);
+    for (int j = 0; j < 8; ++j)
 #pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const bf16* qp = q_s + (nt * 8 + g) * QS + kk * 16 + tq * 2;
-          const bf16* op = do_s + (nt * 8 + g) * QS + kk * 16 + tq * 2;
-          mma_bf16(s[nt], ka, ld32(qp), ld32(qp + 8));
-          mma_bf16(dp[nt], va, ld32(op), ld32(op + 8));
+      for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * j + 2 * tq + e, idx = 4 * j + 2 * rr + e;
+          const bool keep =
+              !need_mask || live(p, q0 + c, kpos[rr], qseg_s[c], ks[rr]);
+          const float pr =
+              keep ? exp2f(s[idx] * scale_log2 - lse_s[c]) : 0.f;
+          s[idx] = pr;
+          dp[idx] = pr * (dp[idx] - delta_s[c]) * p.scale;
         }
-      }
 
-      // P^T over S^T, dS^T over dP^T
+    // dV += P^T dO, dK += dS^T Q: A from registers, B MN-major
+    uint32_t a[4][4];
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
+    for (int t = 0; t < kBQ / 16; ++t) wg_frag(a[t], s, t);
+    wgmma_fence();
+    fence_regs<NO>(dv);
 #pragma unroll
-        for (int rr = 0; rr < 2; ++rr)
+    for (int t = 0; t < kBQ / 16; ++t)
+      wgmma_rs<D>(dv, a[t], desc_mnmajor<D, kBQ>(ot, t), 1);
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int j = nt * 8 + tq * 2 + e;
-            float& x = s[nt][rr * 2 + e];
-            float& y = dp[nt][rr * 2 + e];
-            const float pr = live(p, q0 + j, kpos[rr], qseg_s[j], ks[rr])
-                                 ? expf(x * p.scale - lse_s[j]) : 0.f;
-            x = pr;
-            y = pr * (y - delta_s[j]) * p.scale;
-          }
+    for (int t = 0; t < kBQ / 16; ++t) wg_frag(a[t], dp, t);
+    wgmma_fence();
+    fence_regs<NO>(dk);
+#pragma unroll
+    for (int t = 0; t < kBQ / 16; ++t)
+      wgmma_rs<D>(dk, a[t], desc_mnmajor<D, kBQ>(qt, t), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<NO>(dv);
+    fence_regs<NO>(dk);
 
-      // dV += P^T dO, dK += dS^T Q
-#pragma unroll
-      for (int t = 0; t < kBQ / 16; ++t) {
-        uint32_t pa[4], da[4];
-        acc_to_a(pa, s, t);
-        acc_to_a(da, dp, t);
-#pragma unroll
-        for (int dt = 0; dt < DT; ++dt) {
-          const bf16* op = dot_s + (dt * 8 + g) * TS + t * 16 + tq * 2;
-          const bf16* qp = qt_s + (dt * 8 + g) * TS + t * 16 + tq * 2;
-          mma_bf16(dv[dt], pa, ld32(op), ld32(op + 8));
-          mma_bf16(dk[dt], da, ld32(qp), ld32(qp + 8));
-        }
-      }
+    __syncthreads();  // every thread is done with slot st
+    if (i + kStages < n_items) {
+      if (tid == 0) load_tiles(i + kStages, st);
+      if (tid < kBQ) load_vecs(i + kStages, st);
     }
   }
 
@@ -680,14 +746,35 @@ __global__ void __launch_bounds__(kMmaThreads) bwd_dkv_mma(BwdParams p) {
     if (kpos[rr] >= p.sk) continue;
     const size_t row = (((size_t)b * p.sk + kpos[rr]) * p.hkv + hk) * D;
 #pragma unroll
-    for (int dt = 0; dt < DT; ++dt) {
-      const int col = dt * 8 + tq * 2;
+    for (int j = 0; j < D / 8; ++j) {
+      const int col = j * 8 + tq * 2;
       *reinterpret_cast<uint32_t*>(dk_out + row + col) =
-          pack_bf16(dk[dt][rr * 2], dk[dt][rr * 2 + 1]);
+          pack_bf16(dk[4 * j + 2 * rr], dk[4 * j + 2 * rr + 1]);
       *reinterpret_cast<uint32_t*>(dv_out + row + col) =
-          pack_bf16(dv[dt][rr * 2], dv[dt][rr * 2 + 1]);
+          pack_bf16(dv[4 * j + 2 * rr], dv[4 * j + 2 * rr + 1]);
     }
   }
+}
+
+template <int D>
+int launch_dkv_wgmma(const BwdParams& p, int B, cudaStream_t stream) {
+  CUtensorMap km, vm, qm, om;
+  int err = make_map(&km, p.k, B, p.sk, p.hkv, D, p.k_sb, p.k_ss, p.k_sh, kBK);
+  if (err == 0)
+    err = make_map(&vm, p.v, B, p.sk, p.hkv, D, p.v_sb, p.v_ss, p.v_sh, kBK);
+  if (err == 0)
+    err = make_map(&qm, p.q, B, p.sq, p.hq, D, p.q_sb, p.q_ss, p.q_sh, kBQ);
+  if (err == 0)
+    err = make_map(&om, p.dout, B, p.sq, p.hq, D, p.o_sb, p.o_ss, p.o_sh,
+                   kBQ);
+  if (err != 0) return err;
+  const int smem = DkvSmem<D>::bytes + kSmemSlack;
+  cudaFuncSetAttribute(bwd_dkv_wgmma<D>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int blocks = (p.sk + kBK - 1) / kBK * p.hkv * B;
+  bwd_dkv_wgmma<D><<<blocks, kWgThreads, smem, stream>>>(km, vm, qm, om, p,
+                                                          B);
+  return (int)cudaGetLastError();
 }
 
 template <typename Kernel>
@@ -715,13 +802,9 @@ int dq(int dtype, const BwdParams& p, int B, cudaStream_t s) {
 
 template <int D>
 int dkv(int dtype, const BwdParams& p, int B, cudaStream_t s) {
+  if (dtype == DTYPE_BF16) return launch_dkv_wgmma<D>(p, B, s);
   const dim3 grid((p.sk + kBK - 1) / kBK, p.hkv, B);
   const size_t vecs = 3 * sizeof(float) * kBQ;  // lse, delta, q segments
-  if (dtype == DTYPE_BF16)
-    return launch(bwd_dkv_mma<D>, grid, kMmaThreads,
-                  sizeof(bf16) * ((size_t)(2 * kBK + 2 * kBQ) * (D + 8) +
-                                  (size_t)2 * D * (kBQ + 8)) + vecs,
-                  p, s);
   return launch(bwd_dkv_f32<D>, grid, kThreads,
                 sizeof(float) * ((size_t)(2 * kBK + 2 * kBQ) * (D + 1) +
                                  (size_t)2 * kBK * (kBQ + 1)) + vecs,

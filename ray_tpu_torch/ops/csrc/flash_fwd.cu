@@ -15,19 +15,19 @@
 // 4*D*Sq*Sk/2 (causal) operations on O((Sq+Sk)*D) bytes, hundreds of
 // operations per byte, so the card's arithmetic is the roofline. Two
 // variants, chosen by the input type:
-//   - bf16 (the serving path) runs on the tensor cores: mma.sync
-//     m16n8k16 with float32 accumulators, 4 warps x 16 q rows per 64-row
-//     tile, P handed from the score accumulators to the PV product in
-//     registers;
+//   - bf16 (serving and training) is built for Hopper: wgmma on operands
+//     in shared memory, filled by TMA through an mbarrier ring, with P
+//     kept in registers between the two products and V read MN-major
+//     through the descriptor (see flash_fwd_wgmma below);
 //   - float32 (the exact reference path of the tests) keeps scalar FMAs
 //     on float32 tiles: one block per (64-row q tile, q head, batch row)
 //     of 256 threads, each owning a 4x4 patch of the score tile.
-// Both loop over 64-row kv tiles staged in shared memory, and the causal
-// bound ends the loop early. Not done yet: wgmma and TMA with a
-// warp-specialised pipeline (Hopper's full rate), cp.async double
-// buffering of the next kv tile, and reading ctx pages through the block
-// table instead of a gathered copy.
-#include "common.cuh"
+// Both loop over 64-row kv tiles, and the causal bound ends the loop
+// early. Not done yet: warp specialisation (a producer warp and two
+// consumer warpgroups with setmaxnreg) and overlapping one tile's softmax
+// with the next tile's S product; a TMA store of o; reading ctx pages
+// through the block table instead of a gathered copy.
+#include "hopper.cuh"
 
 namespace {
 
@@ -181,234 +181,228 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------
-// bf16 variant on the tensor cores: mma.sync m16n8k16 with float32
-// accumulators (FlashAttention-2's register layout). 4 warps, each owning
-// 16 rows of the 64-row q tile; Q's fragments stay in registers for the
-// whole kv loop; S = Q K^T and O += P V are tensor-core products, and P
-// goes from S's accumulator registers straight into PV's A fragments.
-// K is staged row-major and V transposed in shared memory, both with a
-// 16-byte row pad (conflict-free fragment loads). Rows are loaded with
-// 16-byte vectors: the wrapper guarantees 16-byte aligned rows.
-constexpr int kMmaThreads = 128;
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo: low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+// bf16 variant for Hopper: wgmma on operands in shared memory, filled by
+// TMA through an mbarrier ring (hopper.cuh). One warpgroup (128 threads)
+// per (64-row q tile, q head, batch row); warp w owns rows 16w..16w+15.
+// Thread 0 loads the Q tile once and keeps kStages K/V tiles in flight;
+// every thread waits on a tile's barrier, runs S = Q K^T (wgmma, Q and K
+// K-major as stored), the online softmax on S's accumulator registers in
+// base 2 (log2(e) folded into the scale), then O += P V (wgmma with P
+// from registers as bf16 and V MN-major through the transpose bit: no
+// transposed copy). A tile is masked only where it must be: across the
+// causal limit, at the sk edge, or everywhere when segment ids are given
+// (the kv tile's ids staged in shared memory one tile ahead). The grid
+// runs the q tiles heaviest first.
+constexpr int kWgThreads = 128;
+constexpr int kStages = 2;  // K/V tiles in flight
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+using bf16 = __nv_bfloat16;
 
 template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                     const int* __restrict__ qseg,
-                     const int* __restrict__ kseg, int sq, int sk, int hq,
-                     int hkv, long long q_sb, long long q_ss, long long q_sh,
-                     long long k_sb, long long k_ss, long long k_sh,
-                     long long v_sb, long long v_ss, long long v_sh,
-                     long long o_sb, long long o_ss, long long o_sh,
-                     int causal, float scale) {
-  using bf16 = __nv_bfloat16;
-  constexpr int QS = D + 8;     // row stride of the Q and K tiles
-  constexpr int VS = kBK + 8;   // row stride of the transposed V tile
-  constexpr int KK = D / 16;    // k16 steps over the head dim
-  constexpr int NT = kBK / 8;   // n8 tiles of a 64-wide score row block
-  constexpr int DT = D / 8;     // n8 tiles of the output
-  constexpr int V8 = D / 8;     // 16-byte vectors per row
+struct FwdSmem {  // byte offsets into the 1024-aligned shared memory
+  static constexpr int tile = kBQ * D * 2;  // a Q, K or V tile (kBQ == kBK)
+  static constexpr int q = 0;
+  static constexpr int k = tile;                      // kStages K tiles
+  static constexpr int v = k + kStages * tile;        // kStages V tiles
+  static constexpr int kseg = v + kStages * tile;     // [2][kBK] int
+  static constexpr int bars = kseg + 2 * kBK * 4;     // Q, then K/V stages
+  static constexpr int bytes = bars + (1 + kStages) * 8;
+};
 
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+template <int D>
+__global__ void __launch_bounds__(kWgThreads)
+flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
+                const __grid_constant__ CUtensorMap kmap,
+                const __grid_constant__ CUtensorMap vmap,
+                bf16* __restrict__ o, float* __restrict__ lse,
+                const int* __restrict__ qseg, const int* __restrict__ kseg,
+                int B, int sq, int sk, int hq, int hkv, long long o_sb,
+                long long o_ss, long long o_sh, int causal,
+                float scale_log2) {
+  using L = FwdSmem<D>;
+  constexpr int NO = D / 2;  // output accumulators per thread
+  constexpr int KK = D / 16;
+  const int n_qt = (sq + kBQ - 1) / kBQ;
+  // heaviest first: under causal masking the last q tiles see most kv
+  const int qt = n_qt - 1 - (int)(blockIdx.x / (hq * B));
+  const int rest = blockIdx.x % (hq * B);
+  const int h = rest % hq, b = rest / hq;
   const int hk = h / (hq / hkv);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, tq = lane & 3;  // fragment row group, column pair
-  const int q0 = qt * kBQ, r0 = warp * 16;
-  const int offset = sk - sq;
+  const int g = lane >> 2, tq = lane & 3;
+  const int q0 = qt * kBQ, offset = sk - sq;
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // [kBQ][QS]
-  bf16* k_s = q_s + kBQ * QS;                     // [kBK][QS]
-  bf16* vt_s = k_s + kBK * QS;                    // [D][VS]
-
-  const bf16* q_base = q + b * q_sb + h * q_sh;
-  const bf16* k_base = k + b * k_sb + hk * k_sh;
-  const bf16* v_base = v + b * v_sb + hk * v_sh;
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-
-  for (int i = tid; i < kBQ * V8; i += kMmaThreads) {
-    const int r = i / V8, c = i - r * V8;
-    const int qpos = q0 + r;
-    *reinterpret_cast<uint4*>(q_s + r * QS + c * 8) =
-        qpos < sq ? *reinterpret_cast<const uint4*>(q_base + qpos * q_ss +
-                                                    c * 8)
-                  : zero;
-  }
-  __syncthreads();
-  uint32_t qf[KK][4];
-#pragma unroll
-  for (int kk = 0; kk < KK; ++kk) {
-    const bf16* p = q_s + (r0 + g) * QS + kk * 16 + tq * 2;
-    qf[kk][0] = ld32(p);
-    qf[kk][1] = ld32(p + 8 * QS);
-    qf[kk][2] = ld32(p + 8);
-    qf[kk][3] = ld32(p + 8 * QS + 8);
-  }
-
-  // this thread's two rows: q0 + r0 + g and q0 + r0 + g + 8
-  float m[2] = {NEG_INF_F, NEG_INF_F}, l[2] = {0.f, 0.f};
-  float acc[DT][4];
-#pragma unroll
-  for (int t = 0; t < DT; ++t)
-    acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
-  int qpos[2], qs[2];
-#pragma unroll
-  for (int rr = 0; rr < 2; ++rr) {
-    qpos[rr] = q0 + r0 + g + 8 * rr;
-    qs[rr] = qseg != nullptr ? qseg[(size_t)b * sq + min(qpos[rr], sq - 1)]
-                             : 0;
-  }
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_smem(smem_raw);
+  unsigned char* q_s = smem + L::q;
+  unsigned char* k_s = smem + L::k;
+  unsigned char* v_s = smem + L::v;
+  int* kseg_s = reinterpret_cast<int*>(smem + L::kseg);
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* full = qbar + 1;
 
   int n_kb = (sk + kBK - 1) / kBK;
   if (causal) n_kb = min(n_kb, (q0 + kBQ + offset + kBK - 1) / kBK);
 
+  if (tid == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < kStages; ++s) mbar_init(&full[s], 1);
+    mbar_fence_init();
+    mbar_expect_tx(qbar, L::tile);
+    tma_load_tile<D, kBQ>(q_s, &qmap, qbar, q0, h, b);
+    for (int s = 0; s < kStages && s < n_kb; ++s) {
+      mbar_expect_tx(&full[s], 2 * L::tile);
+      tma_load_tile<D, kBK>(k_s + s * L::tile, &kmap, &full[s], s * kBK, hk,
+                            b);
+      tma_load_tile<D, kBK>(v_s + s * L::tile, &vmap, &full[s], s * kBK, hk,
+                            b);
+    }
+  }
+  if (kseg != nullptr && tid < kBK)
+    kseg_s[tid] = tid < sk ? kseg[(size_t)b * sk + tid] : 0;
+
+  // this thread's two rows: q0 + 16 warp + g and 8 below
+  int qpos[2], qs[2];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    qpos[rr] = q0 + warp * 16 + g + 8 * rr;
+    qs[rr] = qseg != nullptr ? qseg[(size_t)b * sq + min(qpos[rr], sq - 1)]
+                             : 0;
+  }
+  float m[2] = {NEG_INF_F, NEG_INF_F}, l[2] = {0.f, 0.f};
+  float acc[NO], s[32];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = 0.f;
+  __syncthreads();  // barriers initialised, first segment ids staged
+  mbar_wait(qbar, 0);
+
   for (int kb = 0; kb < n_kb; ++kb) {
-    const int k0 = kb * kBK;
-    __syncthreads();  // the previous iteration is done with k_s and vt_s
-    for (int i = tid; i < kBK * V8; i += kMmaThreads) {
-      const int r = i / V8, c = i - r * V8;
-      const int kpos = k0 + r;
-      *reinterpret_cast<uint4*>(k_s + r * QS + c * 8) =
-          kpos < sk ? *reinterpret_cast<const uint4*>(k_base + kpos * k_ss +
-                                                      c * 8)
-                    : zero;
-    }
-    // V transposed; consecutive threads take consecutive rows, so their
-    // 2-byte stores fall in consecutive shared-memory words
-    for (int i = tid; i < kBK * V8; i += kMmaThreads) {
-      const int r = i % kBK, c = i / kBK;
-      const int kpos = k0 + r;
-      uint4 val = kpos < sk ? *reinterpret_cast<const uint4*>(
-                                  v_base + kpos * v_ss + c * 8)
-                            : zero;
-      const bf16* e = reinterpret_cast<const bf16*>(&val);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) vt_s[(c * 8 + j) * VS + r] = e[j];
-    }
-    __syncthreads();
+    const int st = kb % kStages, k0 = kb * kBK;
+    const unsigned char* kt = k_s + st * L::tile;
+    const unsigned char* vt = v_s + st * L::tile;
+    mbar_wait(&full[st], (kb / kStages) & 1);
 
-    // S = Q K^T: this warp's 16 rows x 64 kv columns
-    float s[NT][4];
+    // S = Q K^T
+    wgmma_fence();
+    fence_regs<32>(s);
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KK; ++kk) {
-        const bf16* p = k_s + (nt * 8 + g) * QS + kk * 16 + tq * 2;
-        mma_bf16(s[nt], qf[kk], ld32(p), ld32(p + 8));
-      }
-    }
+    for (int kk = 0; kk < KK; ++kk)
+      wgmma_ss<64>(s, desc_kmajor<D, kBQ>(q_s, kk),
+                   desc_kmajor<D, kBK>(kt, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<32>(s);
 
-    // masks and online softmax; a row's values sit in the 4 lanes of
-    // one quad (tq = 0..3), two columns per n8 tile each
+    // masks (only where a tile needs them) and the online softmax, in
+    // base 2; a masked score is exactly NEG_INF_F, a live one finite
+    const bool need_mask = kseg != nullptr || k0 + kBK > sk ||
+                           (causal && k0 + kBK - 1 > q0 + offset);
+    const int* ks = kseg_s + (kb & 1) * kBK;
 #pragma unroll
     for (int rr = 0; rr < 2; ++rr) {
       float mx = NEG_INF_F;
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
+      for (int j = 0; j < 8; ++j)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const int kpos = k0 + nt * 8 + tq * 2 + e;
-          bool keep = kpos < sk;
-          if (causal) keep = keep && kpos <= qpos[rr] + offset;
-          if (kseg != nullptr && keep)
-            keep = kseg[(size_t)b * sk + kpos] == qs[rr];
-          float& x = s[nt][rr * 2 + e];
-          x = keep ? x * scale : NEG_INF_F;
+          float& x = s[4 * j + 2 * rr + e];
+          if (need_mask) {
+            const int c = 8 * j + 2 * tq + e, kpos = k0 + c;
+            bool keep = kpos < sk;
+            if (causal) keep = keep && kpos <= qpos[rr] + offset;
+            if (kseg != nullptr) keep = keep && ks[c] == qs[rr];
+            x = keep ? x * scale_log2 : NEG_INF_F;
+          } else {
+            x *= scale_log2;
+          }
           mx = fmaxf(mx, x);
         }
       mx = group_max<4>(mx);
       const float m_new = fmaxf(m[rr], mx);
       float sum = 0.f;
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
+      for (int j = 0; j < 8; ++j)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          float& x = s[nt][rr * 2 + e];
-          // a masked entry holds exactly NEG_INF_F; a live score is finite
-          x = x == NEG_INF_F ? 0.f : expf(x - m_new);
+          float& x = s[4 * j + 2 * rr + e];
+          x = need_mask && x == NEG_INF_F ? 0.f : exp2f(x - m_new);
           sum += x;
         }
       sum = group_sum<4>(sum);
-      const float alpha = expf(m[rr] - m_new);
+      const float alpha = exp2f(m[rr] - m_new);
       l[rr] = l[rr] * alpha + sum;
       m[rr] = m_new;
 #pragma unroll
-      for (int t = 0; t < DT; ++t) {
-        acc[t][rr * 2] *= alpha;
-        acc[t][rr * 2 + 1] *= alpha;
+      for (int j = 0; j < D / 8; ++j) {
+        acc[4 * j + 2 * rr] *= alpha;
+        acc[4 * j + 2 * rr + 1] *= alpha;
       }
     }
 
-    // O += P V: P's accumulator layout is PV's A-fragment layout
+    // O += P V: P from registers, V MN-major
+    uint32_t a[4][4];
 #pragma unroll
-    for (int t = 0; t < kBK / 16; ++t) {
-      const uint32_t a[4] = {pack_bf16(s[2 * t][0], s[2 * t][1]),
-                             pack_bf16(s[2 * t][2], s[2 * t][3]),
-                             pack_bf16(s[2 * t + 1][0], s[2 * t + 1][1]),
-                             pack_bf16(s[2 * t + 1][2], s[2 * t + 1][3])};
+    for (int t = 0; t < kBK / 16; ++t) wg_frag(a[t], s, t);
+    wgmma_fence();
+    fence_regs<NO>(acc);
 #pragma unroll
-      for (int dt = 0; dt < DT; ++dt) {
-        const bf16* p = vt_s + (dt * 8 + g) * VS + t * 16 + tq * 2;
-        mma_bf16(acc[dt], a, ld32(p), ld32(p + 8));
-      }
+    for (int t = 0; t < kBK / 16; ++t)
+      wgmma_rs<D>(acc, a[t], desc_mnmajor<D, kBK>(vt, t), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<NO>(acc);
+
+    // the next tile's segment ids, then refill this stage
+    if (kseg != nullptr && tid < kBK && kb + 1 < n_kb) {
+      const int kpos = k0 + kBK + tid;
+      kseg_s[((kb + 1) & 1) * kBK + tid] =
+          kpos < sk ? kseg[(size_t)b * sk + kpos] : 0;
+    }
+    __syncthreads();  // every thread is done with stage st
+    if (tid == 0 && kb + kStages < n_kb) {
+      const int nk0 = (kb + kStages) * kBK;
+      mbar_expect_tx(&full[st], 2 * L::tile);
+      tma_load_tile<D, kBK>(k_s + st * L::tile, &kmap, &full[st], nk0, hk, b);
+      tma_load_tile<D, kBK>(v_s + st * L::tile, &vmap, &full[st], nk0, hk, b);
     }
   }
 
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) {
     if (qpos[rr] >= sq) continue;
-    const float l_safe = l[rr] == 0.f ? 1.f : l[rr];
+    const float inv = l[rr] == 0.f ? 1.f : 1.f / l[rr];
     bf16* o_row = o + b * o_sb + qpos[rr] * o_ss + h * o_sh;
 #pragma unroll
-    for (int dt = 0; dt < DT; ++dt)
-      *reinterpret_cast<uint32_t*>(o_row + dt * 8 + tq * 2) =
-          pack_bf16(acc[dt][rr * 2] / l_safe, acc[dt][rr * 2 + 1] / l_safe);
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(o_row + j * 8 + tq * 2) =
+          pack_bf16(acc[4 * j + 2 * rr] * inv, acc[4 * j + 2 * rr + 1] * inv);
     if (tq == 0)
-      lse[((size_t)b * sq + qpos[rr]) * hq + h] = m[rr] + logf(l_safe);
+      lse[((size_t)b * sq + qpos[rr]) * hq + h] =
+          l[rr] == 0.f ? NEG_INF_F : m[rr] * kLn2 + logf(l[rr]);
   }
 }
 
 template <int D>
-int launch_mma(const void* q, const void* k, const void* v, void* o,
-               void* lse, const void* qseg, const void* kseg, int B, int sq,
-               int sk, int hq, int hkv, const long long* st, int causal,
-               float scale, cudaStream_t stream) {
-  const size_t smem = sizeof(__nv_bfloat16) *
-                      ((size_t)(kBQ + kBK) * (D + 8) + (size_t)D * (kBK + 8));
-  cudaFuncSetAttribute(flash_fwd_mma_kernel<D>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  dim3 grid((sq + kBQ - 1) / kBQ, hq, B);
-  flash_fwd_mma_kernel<D><<<grid, kMmaThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      static_cast<float*>(lse), static_cast<const int*>(qseg),
-      static_cast<const int*>(kseg), sq, sk, hq, hkv, st[0], st[1], st[2],
-      st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11],
-      causal, scale);
+int launch_wgmma(const void* q, const void* k, const void* v, void* o,
+                 void* lse, const void* qseg, const void* kseg, int B, int sq,
+                 int sk, int hq, int hkv, const long long* st, int causal,
+                 float scale, cudaStream_t stream) {
+  CUtensorMap qm, km, vm;
+  int err = make_map(&qm, q, B, sq, hq, D, st[0], st[1], st[2], kBQ);
+  if (err == 0) err = make_map(&km, k, B, sk, hkv, D, st[3], st[4], st[5], kBK);
+  if (err == 0) err = make_map(&vm, v, B, sk, hkv, D, st[6], st[7], st[8], kBK);
+  if (err != 0) return err;
+  const int smem = FwdSmem<D>::bytes + kSmemSlack;
+  cudaFuncSetAttribute(flash_fwd_wgmma<D>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int blocks = (sq + kBQ - 1) / kBQ * hq * B;
+  flash_fwd_wgmma<D><<<blocks, kWgThreads, smem, stream>>>(
+      qm, km, vm, static_cast<bf16*>(o), static_cast<float*>(lse),
+      static_cast<const int*>(qseg), static_cast<const int*>(kseg), B, sq, sk,
+      hq, hkv, st[9], st[10], st[11], causal, scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
@@ -444,9 +438,9 @@ extern "C" int flash_fwd(int dtype, const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == DTYPE_BF16) {
     switch (d) {
-      case 16: return launch_mma<16>(q, k, v, o, lse, qseg, kseg, B, sq, sk, hq, hkv, strides, causal, scale, s);
-      case 64: return launch_mma<64>(q, k, v, o, lse, qseg, kseg, B, sq, sk, hq, hkv, strides, causal, scale, s);
-      case 128: return launch_mma<128>(q, k, v, o, lse, qseg, kseg, B, sq, sk, hq, hkv, strides, causal, scale, s);
+      case 16: return launch_wgmma<16>(q, k, v, o, lse, qseg, kseg, B, sq, sk, hq, hkv, strides, causal, scale, s);
+      case 64: return launch_wgmma<64>(q, k, v, o, lse, qseg, kseg, B, sq, sk, hq, hkv, strides, causal, scale, s);
+      case 128: return launch_wgmma<128>(q, k, v, o, lse, qseg, kseg, B, sq, sk, hq, hkv, strides, causal, scale, s);
       default: return (int)cudaErrorInvalidValue;
     }
   }

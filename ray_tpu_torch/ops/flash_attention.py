@@ -131,7 +131,8 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool, q_seg,
 def _check_inputs(name: str, *tensors) -> None:
     """Refuse what the kernels do not take: one float32 or bf16 type, a
     head dim in KERNEL_HEAD_DIMS, one device, a contiguous head dim and,
-    for bf16 (16-byte vector loads), 16-byte aligned rows."""
+    for bf16 (TMA tile loads), a 16-byte aligned base, strides that are
+    multiples of 16 bytes and no empty tensor (zero-length Sq or Sk)."""
     dtype, d = tensors[0].dtype, tensors[0].shape[-1]
     if dtype not in _DTYPE_CODES or any(t.dtype != dtype for t in tensors):
         raise TypeError(f"{name} takes float32 or bfloat16 tensors of one "
@@ -142,11 +143,17 @@ def _check_inputs(name: str, *tensors) -> None:
         raise ValueError(f"{name}: every tensor must lie on one device")
     if any(t.stride(-1) != 1 for t in tensors):
         raise ValueError(f"{name} needs a contiguous head dim")
-    if dtype == torch.bfloat16 and any(
-            t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3])
-            for t in tensors):
-        raise ValueError(f"the bf16 {name} kernel loads 16-byte rows: its "
-                         f"inputs need 16-byte aligned rows")
+    if dtype != torch.bfloat16:
+        return
+    if any(t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3])
+           for t in tensors):
+        raise ValueError(f"the bf16 {name} kernel loads tiles by TMA: its "
+                         f"inputs need a 16-byte aligned base and strides "
+                         f"of a multiple of 16 bytes")
+    if any(t.numel() == 0 for t in tensors):
+        raise ValueError(f"the bf16 {name} kernel loads tiles by TMA: "
+                         f"zero-length Sq or Sk is refused, got shapes "
+                         f"{[tuple(t.shape) for t in tensors]}")
 
 
 def _segments(q_seg, kv_seg, b: int, sq: int, sk: int, device):

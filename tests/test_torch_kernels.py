@@ -6,12 +6,18 @@ with a card and no JAX (there without the repo's conftest):
     python -m pytest --noconftest -m gpu tests/test_torch_kernels.py
 
 Tests marked ``gpu`` decide in their body whether a card is present and
-skip without one. Tolerances: float32 1e-5 (summation order only; 1e-4
+skip without one; the one test of ``chip_smoke.py``'s watchdog needs no
+card. Tolerances: float32 1e-5 (summation order only; 1e-4
 for the backward, whose sums run over up to 200 terms of magnitude up to
 10); bfloat16 2e-2 + 1e-2*|plain| (float32 accumulators; the outputs, and
 in the backward p and ds before their products, are rounded to bf16 as
 the TPU kernels round them); lse 1e-3 absolute (float32 on both sides).
 """
+
+import os
+import subprocess
+import sys
+import time
 
 import numpy as np
 import pytest
@@ -21,6 +27,7 @@ from ray_tpu_torch.ops import _build
 from ray_tpu_torch.ops import flash_attention as t_flash
 from ray_tpu_torch.ops import paged_attention as t_paged
 
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 F32 = dict(rtol=1e-5, atol=1e-5)
 F32_BWD = dict(rtol=1e-4, atol=1e-4)
 BF16 = dict(rtol=1e-2, atol=2e-2)
@@ -116,6 +123,21 @@ def test_build_check_raises_on_nonzero_codes():
                for name, fns in _build.SIGNATURES.items())
 
 
+def test_chip_smoke_watchdog_ends_a_hung_phase():
+    """A phase still running at its deadline (here one that sleeps past 1 s,
+    as a kernel spinning on a barrier would) ends chip_smoke.py's process
+    with the threads' tracebacks and a non-zero exit; no card needed."""
+    code = ("import time, chip_smoke; "
+            "chip_smoke.run_phase('hang', 1, time.sleep, 30)")
+    t0 = time.monotonic()
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=60)
+    assert proc.returncode != 0
+    assert time.monotonic() - t0 < 20
+    assert "Timeout" in proc.stderr and "run_phase" in proc.stderr
+    assert "phase hang (deadline 1 s)" in proc.stdout
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_decode_kernel_matches_plain_on_card(dtype):
@@ -135,29 +157,44 @@ def test_decode_kernel_matches_plain_on_card(dtype):
     _close(got, want, **(F32 if dtype == "float32" else BF16))
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", ["causal", "ctx_segments"])
-def test_flash_kernel_matches_plain_on_card(dtype, case):
-    _need_card()
-    rng = np.random.default_rng(9)
-    dt = getattr(torch, dtype)
-    if case == "causal":
-        q, k, v = _qkv(rng, 100, 130, 8, 2, 128)
-        segs = None
-    else:  # row 0 sees no kv row at all: o = 0, lse = -1e30
-        q, k, v = _qkv(rng, 70, 256, 8, 2, 128)
+def _fwd_inputs(rng, case, d, dt):
+    """q, k, v on the card, segment ids and causality of a forward case."""
+    if case.startswith("causal"):  # ragged: Sq 1, 37, 100, 130; Sk = Sq + 30
+        sq = int(case.split("_")[1])
+        q, k, v = _qkv(rng, sq, sq + 30, 8, 2, d)
+        segs, causal = None, True
+    elif case == "strided_v":  # k and v are views of one fused tensor
+        q = torch.from_numpy(rng.standard_normal((2, 100, 8, d))
+                             .astype(np.float32))
+        kv = torch.from_numpy(rng.standard_normal((2, 130, 4, d))
+                              .astype(np.float32)).to("cuda", dt)
+        return q.to("cuda", dt), kv[:, :, :2], kv[:, :, 2:], None, True
+    else:  # Sq < Sk; row 0 sees no kv row at all: o = 0, lse = -1e30
+        q, k, v = _qkv(rng, 70, 256, 8, 2, d)
         kv_seg = (torch.arange(256)[None] < torch.tensor([[0], [48]])).to(
             torch.int32)
         segs = (torch.ones(2, 70, dtype=torch.int32).cuda(), kv_seg.cuda())
+        causal = False
     q, k, v = (x.to("cuda", dt) for x in (q, k, v))
-    causal = case == "causal"
+    return q, k, v, segs, causal
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [16, 64, 128])
+@pytest.mark.parametrize("case", ["causal_1", "causal_37", "causal_100",
+                                  "causal_130", "ctx_segments",
+                                  "strided_v"])
+def test_flash_kernel_matches_plain_on_card(dtype, d, case):
+    _need_card()
+    rng = np.random.default_rng(9)
+    q, k, v, segs, causal = _fwd_inputs(rng, case, d, getattr(torch, dtype))
     before = t_flash.flash_attention.launches
     o, lse = t_flash.flash_attention(q, k, v, causal=causal,
                                      segment_ids=segs, return_lse=True)
     o_p, lse_p = t_flash.flash_attention_plain(
         q, k, v, causal=causal, q_seg=None if segs is None else segs[0],
-        kv_seg=None if segs is None else segs[1], scale=128 ** -0.5)
+        kv_seg=None if segs is None else segs[1], scale=d ** -0.5)
     torch.cuda.synchronize()
     assert t_flash.flash_attention.launches == before + 1
     _close(o, o_p, **(F32 if dtype == "float32" else BF16))
@@ -174,6 +211,8 @@ def _bwd_inputs(rng, case, d, dt):
         sq = sk = 100
     elif case == "sq_lt_sk":
         sq, sk = 70, 200
+    elif case == "sq1_sk200":
+        sq, sk = 1, 200
     else:  # packed rows, q rows of segment 3 see no kv row at all
         sq = sk = 130
         kv_seg = torch.from_numpy(np.stack([
@@ -192,7 +231,8 @@ def _bwd_inputs(rng, case, d, dt):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("d", [16, 64, 128])
-@pytest.mark.parametrize("case", ["causal", "segments", "sq_lt_sk"])
+@pytest.mark.parametrize("case", ["causal", "segments", "sq_lt_sk",
+                                  "sq1_sk200"])
 def test_flash_bwd_kernels_match_plain_on_card(dtype, d, case):
     """K3 and K4 against their plain versions on the same q, k, v, do,
     lse and delta (lse from K2)."""
@@ -259,6 +299,16 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
     q = torch.zeros(1, 8, 2, 48, device="cuda")
     with pytest.raises(ValueError, match="head dim"):
         t_flash.flash_attention(q, q, q, causal=False)
+    # TMA: a base off 16-byte alignment, and zero-length Sk
+    buf = torch.zeros(2 * 8 * 2 * 64 + 8, device="cuda",
+                      dtype=torch.bfloat16)
+    odd = buf[1:1 + 2 * 8 * 2 * 64].view(2, 8, 2, 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        t_flash.flash_attention(odd, odd, odd, causal=False)
+    empty = torch.zeros(2, 0, 2, 64, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="zero-length"):
+        t_flash.flash_attention(buf[:2048].view(2, 8, 2, 64), empty, empty,
+                                causal=False)
     # the backward wrappers: type, head dim, alignment, lse/delta layout
     x = torch.zeros(1, 8, 2, 64, device="cuda", dtype=torch.bfloat16)
     vec = torch.zeros(1, 8, 2, device="cuda")
