@@ -10,11 +10,14 @@ every thread's traceback and exit code 1.
 1. device: needs a CUDA card; prints its name and power limit;
 2. build: compiles every kernel with nvcc for sm_90a, prints the ptxas
    register/shared-memory summary and, from `cuobjdump -sass`, each entry
-   function's count of wgmma (HGMMA) and TMA load (UTMALDG) instructions;
-   the bf16 K2 and K4 kernels must have both;
+   function's count of wgmma (HGMMA), TMA load (UTMALDG), bulk copy
+   (UBLKCP) and mma.sync (HMMA) instructions; the bf16 K2, K3 and K4
+   kernels must have HGMMA and UTMALDG, the bf16 K1 kernel a bulk copy and
+   tensor-core instructions;
 3. kernels: each kernel against its plain PyTorch version at Llama-3-8B
    shapes in bf16 (max error against a stated tolerance), with CUDA-event
-   times of the kernel, the plain version and one PyTorch library call;
+   times of the kernel, the plain version and one PyTorch library call,
+   and K1's decode and merge kernels' device time from torch.profiler;
 4. engine: the Serve-LLM engine at the full width and depth of llama3-8b
    (bf16, seeded random weights made on the card) serves 8 requests, one
    of them a prefix-cache hit that takes the cached-prefix (ctx) path; the
@@ -39,8 +42,9 @@ every thread's traceback and exit code 1.
    give the same loss, grad norm and updated parameters.
 With `--parent DIR` (a directory holding an earlier commit's tree, for
 example unpacked by `git archive` into the ignored `_archive/`), phases 3
-and 6 also build that tree's flash_fwd.cu and flash_bwd.cu and time its
-K2 and K4 on the same inputs, in turns with the current ones.
+and 6 also build that tree's paged_decode.cu, flash_fwd.cu and
+flash_bwd.cu and time its K1, K2, K3 and K4 on the same inputs, in turns
+with the current ones.
 Then one JSON line of per-kernel numbers, and as the last line
 {"ok": true, "device": {...}}.
 """
@@ -97,10 +101,11 @@ NOISY_GRAD = 1e-6
 
 
 # Each phase's deadline in seconds: about five times its time on an H100
-# (logged by run_phase: build 24.8 s with the earlier tree's K2 and K4,
-# kernels 3.1, engine 52.0, reference 7.8, train_kernels 3.2, trainer
-# 6.1, train_reference 5.9), and at least 30 s
-DEADLINES_S = {"device": 30, "build": 120, "kernels": 30, "engine": 240,
+# (logged by run_phase: build 23.9 s with the earlier tree's kernels,
+# kernels 9.2, engine 33.1, reference 8.5, train_kernels 3.4, trainer
+# 5.7, train_reference 5.7; on a slower host build 42.2, kernels 17.4,
+# engine 58.3), and at least 30 s
+DEADLINES_S = {"device": 30, "build": 120, "kernels": 60, "engine": 240,
                "reference": 45, "train_kernels": 30, "trainer": 45,
                "train_reference": 45}
 
@@ -124,9 +129,16 @@ def run_phase(name: str, deadline_s: float, fn, *args, **kwargs):
     return out
 
 
+# cycles the stream sleeps before each timed launch (about 0.6 ms): the
+# host queues fn's launches meanwhile, so its launch latency stays out of
+# the event window (without it, a 15 us kernel read 23 to 216 us)
+HOLD_CYCLES = 1_000_000
+
+
 def time_ms(fn, iters: int = 10, warmup: int = 2, flush=None) -> float:
     """Mean time of fn() by CUDA events; `flush` (a large buffer) is
-    rewritten before each timed launch so inputs start cold in L2."""
+    rewritten before each timed launch so inputs start cold in L2, and
+    the stream is held busy before the window opens."""
     import torch
 
     for _ in range(warmup):
@@ -136,6 +148,7 @@ def time_ms(fn, iters: int = 10, warmup: int = 2, flush=None) -> float:
     for i in range(iters):
         if flush is not None:
             flush.zero_()
+        torch.cuda._sleep(HOLD_CYCLES)
         starts[i].record()
         fn()
         ends[i].record()
@@ -173,21 +186,22 @@ def close_bf16(got, want) -> bool:
                 .all())
 
 
-# the earlier tree's K2 and K4 libraries (--parent), else None
+# the earlier tree's kernel libraries (--parent), else None
 PARENT = None
 
 
 def build_parent(root: str) -> dict:
-    """Build an earlier tree's flash_fwd.cu and flash_bwd.cu (under
+    """Build an earlier tree's kernel sources (under
     root/ray_tpu_torch/ops/csrc) into root/_build, in parallel; returns the
-    loaded libraries, whose entry points take the current arguments."""
+    loaded libraries, whose entry points take the current arguments (an
+    entry point the earlier tree lacks is left unbound)."""
     from ray_tpu_torch.ops import _build
 
     csrc = os.path.join(root, "ray_tpu_torch", "ops", "csrc")
     out_dir = os.path.join(root, "_build")
     os.makedirs(out_dir, exist_ok=True)
     procs = {}
-    for name in ("flash_fwd", "flash_bwd"):
+    for name in _build.SOURCES:
         path = os.path.join(out_dir, f"libparent_{name}.so")
         procs[name] = (path, subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-o", path,
@@ -199,6 +213,8 @@ def build_parent(root: str) -> dict:
         assert proc.returncode == 0, f"parent {name} build failed:\n{report}"
         lib = ctypes.CDLL(path)
         for fn_name, argtypes in _build.SIGNATURES[name].items():
+            if not hasattr(lib, fn_name):
+                continue
             fn = getattr(lib, fn_name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
@@ -221,6 +237,48 @@ def parent_fwd(torch, q, k, v, causal, q_seg, kv_seg, scale):
         torch.cuda.current_stream().cuda_stream)
     assert code == 0, f"parent flash_fwd: cudaError {code}"
     return o, lse
+
+
+def parent_decode(torch, q, pool, bt, lens, scale):
+    """The earlier tree's K1, called as the wrapper calls the current one
+    (partial buffers sized by that tree's own split count)."""
+    from ray_tpu_torch.ops import paged_attention as pa
+
+    lib = PARENT["paged_decode"]
+    b, hq, d = q.shape
+    _, hkv, page, _ = pool.shape
+    mp = bt.shape[1]
+    n_split = lib.paged_decode_splits(page, mp)
+    part_acc = torch.empty((b, hq, n_split, d), dtype=torch.float32,
+                           device=q.device)
+    part_ml = torch.empty((b, hq, n_split, 2), dtype=torch.float32,
+                          device=q.device)
+    out = torch.empty_like(q)
+    code = lib.paged_decode(
+        pa._DTYPE_CODES[q.dtype], q.data_ptr(), pool.data_ptr(),
+        bt.data_ptr(), lens.data_ptr(), part_acc.data_ptr(),
+        part_ml.data_ptr(), out.data_ptr(), b, hq, hkv, d, page, mp,
+        float(scale), torch.cuda.current_stream().cuda_stream)
+    assert code == 0, f"parent paged_decode: cudaError {code}"
+    return out
+
+
+def parent_dq(torch, q, k, v, do, lse, delta, causal, q_seg, kv_seg,
+              scale):
+    """The earlier tree's K3, called as the wrapper calls the current one."""
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    dq = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
+    code = PARENT["flash_bwd"].flash_bwd_dq(
+        fa._DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), fa._ptr(q_seg),
+        fa._ptr(kv_seg), dq.data_ptr(), b, sq, sk, hq, hkv, d,
+        fa._strides(q, k, v, do), int(causal), float(scale),
+        torch.cuda.current_stream().cuda_stream)
+    assert code == 0, f"parent flash_bwd_dq: cudaError {code}"
+    return dq
 
 
 def parent_dkv(torch, q, k, v, do, lse, delta, causal, q_seg, kv_seg,
@@ -252,13 +310,18 @@ def timed(fn, flush, parent_fn=None):
     return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
 
 
+SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP", "HMMA")
+
+
 def check_sass(_build) -> None:
-    """Count wgmma (HGMMA) and TMA load (UTMALDG) instructions per entry
-    function of the built K2 and K4 libraries; the bf16 K2 and K4 kernels
-    must have both, and no mma.sync design of either may remain."""
+    """Count wgmma (HGMMA), TMA load (UTMALDG), bulk copy (UBLKCP) and
+    mma.sync (HMMA) instructions per entry function of the built libraries.
+    The bf16 K2, K3 and K4 kernels must have HGMMA and UTMALDG, and no
+    mma.sync design of them may remain; the bf16 K1 kernel must have a
+    bulk copy and tensor-core instructions."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     counts = {}
-    for name in ("flash_fwd", "flash_bwd"):
+    for name in _build.SOURCES:
         sass = subprocess.run([tool, "-sass", _build._lib_path(name)],
                               check=True, capture_output=True,
                               text=True).stdout
@@ -267,20 +330,49 @@ def check_sass(_build) -> None:
             m = re.search(r"Function : (\S+)", line)
             if m:
                 fn = m.group(1)
-                counts[fn] = {"HGMMA": 0, "UTMALDG": 0}
+                counts[fn] = dict.fromkeys(SASS_OPS, 0)
             elif fn is not None:
-                for op in ("HGMMA", "UTMALDG"):
-                    counts[fn][op] += op in line
+                for op in SASS_OPS:
+                    counts[fn][op] += re.search(rf"\b{op}\b", line) is not None
     for fn, c in sorted(counts.items()):
-        log(f"  sass {fn}: HGMMA {c['HGMMA']}, UTMALDG {c['UTMALDG']}")
-    for key in ("flash_fwd_wgmma", "bwd_dkv_wgmma"):
+        log(f"  sass {fn}: " + ", ".join(f"{op} {c[op]}" for op in SASS_OPS))
+    for key in ("flash_fwd_wgmma", "bwd_dq_wgmma", "bwd_dkv_wgmma"):
         fns = [fn for fn in counts if key in fn]
         assert fns, f"no {key} entry function in the built libraries"
         for fn in fns:
             assert counts[fn]["HGMMA"] > 0 and counts[fn]["UTMALDG"] > 0, \
                 f"{fn} has no wgmma or no TMA load"
-    old = [fn for fn in counts if "flash_fwd_mma" in fn or "bwd_dkv_mma" in fn]
-    assert not old, f"an mma.sync design of K2 or K4 remains: {old}"
+    fns = [fn for fn in counts if "paged_decode_mma" in fn]
+    assert fns, "no paged_decode_mma entry function in the built libraries"
+    for fn in fns:
+        c = counts[fn]
+        assert c["UBLKCP"] > 0 and c["HMMA"] + c["HGMMA"] > 0, \
+            f"{fn} has no bulk copy or no tensor-core instruction"
+    old = [fn for fn in counts if any(
+        key in fn for key in ("flash_fwd_mma", "bwd_dq_mma", "bwd_dkv_mma"))]
+    assert not old, f"an mma.sync design of K2, K3 or K4 remains: {old}"
+
+
+def profile_decode_kernels(torch, fn, calls: int = 20) -> dict:
+    """Device microseconds per call of K1's two kernels (the split pass
+    `paged_decode_mma` and the merge), from torch.profiler over `calls`
+    calls of fn."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type.name == "CUDA" and "paged_decode" in e.key:
+            kind = "merge_us" if "merge" in e.key else "decode_us"
+            out[kind] = e.self_device_time_total / e.count
+    assert set(out) == {"decode_us", "merge_us"}, \
+        f"K1's kernels not found in the profile: {out}"
+    return out
 
 
 def check_kernels(torch, flush):
@@ -321,18 +413,28 @@ def check_kernels(torch, flush):
         f"(tolerance {ATOL_O_BF16} + {RTOL_O_BF16}*|plain|: bf16 output "
         f"rounding, f32 accumulators)")
     assert close_bf16(got, want), "K1 disagrees with its plain version"
-    ms = time_ms(lambda: paged_attention_decode(q, pool, bt, lens),
-                 flush=flush)
+    if PARENT is not None:  # the earlier tree computes the same function
+        old = parent_decode(torch, q, pool, bt, lens, scale)
+        log(f"  earlier tree's K1 against the current one: max diff "
+            f"{max_err(old, got):.3e}")
+    ms, parent_ms = timed(
+        lambda: paged_attention_decode(q, pool, bt, lens), flush,
+        PARENT and (lambda: parent_decode(torch, q, pool, bt, lens, scale)))
+    prof_us = profile_decode_kernels(
+        torch, lambda: paged_attention_decode(q, pool, bt, lens))
+    log(f"  K1 device time per call (torch.profiler, 20 calls, L2 warm): "
+        f"decode {prof_us['decode_us']:.2f} us, merge "
+        f"{prof_us['merge_us']:.2f} us; event time {1e3 * ms:.2f} us "
+        f"(L2 flushed)")
     plain_ms = time_ms(lambda: paged_attention_decode_plain(
         q, pool, bt, lens, scale=scale), flush=flush)
-    used_rows = sum(math.ceil(n / page) * page for n in lengths)
-    k1_bytes = used_rows * hkv * 2 * d * 2 + 2 * q.numel() * 2 \
+    # the live rows only: the kernel copies no row at or past a length
+    k1_bytes = sum(lengths) * hkv * 2 * d * 2 + 2 * q.numel() * 2 \
         + bt.numel() * 4 + lens.numel() * 4
     k1_flops = 4 * sum(lengths) * hq * d
     results["paged_decode"] = dict(
-        max_abs_err=err, ms=ms, parent_ms=None, plain_ms=plain_ms,
-        library_ms=None,
-        bytes=k1_bytes, flops=k1_flops)
+        max_abs_err=err, ms=ms, parent_ms=parent_ms, plain_ms=plain_ms,
+        library_ms=None, bytes=k1_bytes, flops=k1_flops, **prof_us)
 
     # ---- K2 self part: B=4, S=512, causal
     bs, s = 4, 512
@@ -523,7 +625,16 @@ def check_training_kernels(torch, flush):
         lambda: flash_bwd_dkv(q, k, v, do, lse, delta, **kw), flush,
         PARENT and (lambda: parent_dkv(torch, q, k, v, do, lse, delta, True,
                                        None, None, scale)))
+    dq_ms, dq_parent_ms = timed(
+        lambda: flash_bwd_dq(q, k, v, do, lse, delta, **kw), flush,
+        PARENT and (lambda: parent_dq(torch, q, k, v, do, lse, delta, True,
+                                      None, None, scale)))
     if PARENT is not None:  # the earlier tree computes the same function
+        dq_old = parent_dq(torch, q, k, v, do, lse, delta, True, None, None,
+                           scale)
+        dq_new = flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+        log(f"  earlier tree's K3 against the current one: max|dq| diff "
+            f"{max_err(dq_old, dq_new):.3e}")
         dk_old, dv_old = parent_dkv(torch, q, k, v, do, lse, delta, True,
                                     None, None, scale)
         dk_new, dv_new = flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
@@ -539,9 +650,7 @@ def check_training_kernels(torch, flush):
             library_ms=sdpa_fwd_ms,
             bytes=2 * qb + 2 * kb + vec, flops=2 * 2 * d * live),
         "flash_bwd_dq": dict(
-            max_abs_err=errs["dq"], parent_ms=None,
-            ms=time_ms(lambda: flash_bwd_dq(q, k, v, do, lse, delta, **kw),
-                       flush=flush),
+            max_abs_err=errs["dq"], parent_ms=dq_parent_ms, ms=dq_ms,
             plain_ms=time_ms(lambda: flash_bwd_dq_plain(
                 q, k, v, do, lse, delta, **kw), flush=flush),
             library_ms=sdpa_bwd_ms,
@@ -1029,7 +1138,7 @@ def device_info(torch):
 
 def build(parent):
     """Phase 2: every kernel from the checkout's sources, in parallel; the
-    SASS check; the earlier tree's K2 and K4 with --parent."""
+    SASS check; the earlier tree's kernels with --parent."""
     global PARENT
     from ray_tpu_torch.ops import _build
 
@@ -1046,15 +1155,15 @@ def build(parent):
     if parent:
         t0 = time.perf_counter()
         PARENT = build_parent(parent)
-        log(f"built the earlier tree's K2 and K4 from {parent} in "
+        log(f"built the earlier tree's kernels from {parent} in "
             f"{time.perf_counter() - t0:.1f} s")
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--parent", default=None,
-                        help="an earlier tree whose K2 and K4 are timed "
-                        "beside the current ones")
+                        help="an earlier tree whose K1, K2, K3 and K4 are "
+                        "timed beside the current ones")
     args = parser.parse_args()
     import torch
 
@@ -1146,7 +1255,8 @@ def main() -> int:
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
          "bound_by": r["bound_by"], "library_ms": r["library_ms"],
          "tflops": r["tflops"], "bound_share": r["bound_share"],
-         "parent_ms": r["parent_ms"]}
+         "parent_ms": r["parent_ms"],
+         **{k: r[k] for k in ("decode_us", "merge_us") if k in r}}
         for kname, r in kernels.items()],
         "engine": {"ttft_ms": eng["ttft_ms"],
                    "decode_tok_s": eng["decode_tok_s"],

@@ -5,7 +5,7 @@ Hopper (``sm_90a``) into a shared library with a plain C interface, then
 loaded with ``ctypes``. Pointers and the stream are passed as
 ``c_void_p``; every entry point returns ``cudaGetLastError()`` (or the
 error of encoding a TMA tensor map), and ``check`` raises on a non-zero
-code. The bf16 kernels K2 and K4 encode their tensor maps with
+code. The bf16 kernels K2, K3 and K4 encode their tensor maps with
 ``cuTensorMapEncodeTiled``, reached through ``cudaGetDriverEntryPoint``,
 so no library links ``-lcuda``. Libraries go to ``_build/`` beside
 this package (listed in ``.gitignore``) and are rebuilt when a source or
@@ -41,6 +41,7 @@ SIGNATURES = {
         "paged_decode": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                          _I, _I, _F, _P],
         "paged_decode_splits": [_I, _I],
+        "paged_decode_supports": [_I, _I],
     },
     "flash_fwd": {
         "flash_fwd": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

@@ -28,17 +28,16 @@
 //     GQA group in float32 registers: the TPU version's per-q-head f32
 //     partials [B, Hq, Sk, D] and their group sum never touch HBM.
 // Two variants each, chosen by the input type, as in K2: an exact
-// scalar-FMA float32 variant (256 threads, 4x4 patches) and, in bf16,
-//   - K3 on mma.sync m16n8k16 (float32 accumulators, 4 warps x 16 rows;
-//     ds goes from the accumulators into the next product's A fragments
-//     in registers, rounded to bf16 as the TPU kernel rounds it; K staged
-//     transposed by scalar stores);
-//   - K4 built for Hopper: wgmma with TMA through an mbarrier ring, and
-//     no transposed copy (see bwd_dkv_wgmma).
-// Not done yet: K3 on wgmma and TMA; warp specialisation of K4 (a
-// producer warp, two consumer warpgroups, setmaxnreg) and overlapping one
-// item's exp with the next item's products; one fused kernel writing dq
-// by atomics (FlashAttention-2's layout) instead of two passes.
+// scalar-FMA float32 variant (256 threads, 4x4 patches) and, in bf16, a
+// variant built for Hopper: wgmma with TMA through an mbarrier ring, p
+// and ds rounded to bf16 in registers as the A operand of the next
+// product, and every transposed operand read MN-major through the
+// descriptor, so no tile is copied transposed (see bwd_dkv_wgmma and
+// bwd_dq_wgmma).
+// Not done yet: warp specialisation (a producer warp, two consumer
+// warpgroups, setmaxnreg) and overlapping one tile's exp with the next
+// tile's products; one fused kernel writing dq by atomics
+// (FlashAttention-2's layout) instead of two passes.
 #include "hopper.cuh"
 
 namespace {
@@ -47,7 +46,6 @@ using bf16 = __nv_bfloat16;
 constexpr int kBQ = 64;       // q rows per tile
 constexpr int kBK = 64;       // kv rows per tile
 constexpr int kThreads = 256;  // scalar variant: a 16 x 16 thread grid
-constexpr int kMmaThreads = 128;
 
 struct BwdParams {
   const void* q;
@@ -371,189 +369,6 @@ __global__ void __launch_bounds__(kThreads) bwd_dkv_f32(BwdParams p) {
 }
 
 // ---------------------------------------------------------------------
-// bf16 variants on the tensor cores. mma.sync m16n8k16 fragment layouts
-// (g = lane / 4, t = lane % 4):
-//   A 16x16 row-major: {A[g][2t..2t+1], A[g+8][2t..], A[g][2t+8..],
-//                       A[g+8][2t+8..]};
-//   B 16x8 "col": {B[2t..2t+1][g], B[2t+8..2t+9][g]} (k pairs per column);
-//   C 16x8: {C[g][2t], C[g][2t+1], C[g+8][2t], C[g+8][2t+1]}.
-// K3's dq product, whose B runs along the K tile's rows, reads a
-// transposed copy staged in shared memory.
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// the A fragment of rows row0..row0+15, cols col0..col0+15 of a row-major
-// tile with row stride `stride`
-__device__ __forceinline__ void load_a(uint32_t* a, const bf16* tile,
-                                       int stride, int row0, int col0,
-                                       int g, int t) {
-  const bf16* p = tile + (row0 + g) * stride + col0 + t * 2;
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * stride);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * stride + 8);
-}
-
-// the A fragment of k-step `t` of a 16 x 64 accumulator block x[8][4]
-// (rows in C layout), rounded to bf16
-__device__ __forceinline__ void acc_to_a(uint32_t* a, float (*x)[4], int t) {
-  a[0] = pack_bf16(x[2 * t][0], x[2 * t][1]);
-  a[1] = pack_bf16(x[2 * t][2], x[2 * t][3]);
-  a[2] = pack_bf16(x[2 * t + 1][0], x[2 * t + 1][1]);
-  a[3] = pack_bf16(x[2 * t + 1][2], x[2 * t + 1][3]);
-}
-
-// Stage `rows` rows of D bf16 from src (row stride `ss`, rows at or past
-// `limit` zero-filled) row-major into dst [rows][D + 8] and, if dst_t is
-// not null, transposed into dst_t [D][rows + 8]. Consecutive threads take
-// consecutive rows, so the 2-byte transposed stores fall in consecutive
-// shared-memory words.
-template <int D, int rows>
-__device__ __forceinline__ void stage(bf16* dst, bf16* dst_t, const bf16* src,
-                                      long long ss, int first, int limit,
-                                      int tid) {
-  constexpr int V8 = D / 8;
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  for (int i = tid; i < rows * V8; i += kMmaThreads) {
-    const int r = i % rows, c = i / rows;
-    const int pos = first + r;
-    const uint4 val = pos < limit
-        ? *reinterpret_cast<const uint4*>(src + pos * ss + c * 8) : zero;
-    *reinterpret_cast<uint4*>(dst + r * (D + 8) + c * 8) = val;
-    if (dst_t != nullptr) {
-      const bf16* e = reinterpret_cast<const bf16*>(&val);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) dst_t[(c * 8 + j) * (rows + 8) + r] = e[j];
-    }
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads) bwd_dq_mma(BwdParams p) {
-  constexpr int QS = D + 8;    // row stride of the row-major tiles
-  constexpr int TS = kBK + 8;  // row stride of the transposed K tile
-  constexpr int KK = D / 16;   // k16 steps over the head dim
-  constexpr int NT = kBK / 8;  // n8 tiles of a 64-wide score row block
-  constexpr int DT = D / 8;    // n8 tiles of the output
-
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (p.hq / p.hkv);
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, tq = lane & 3;
-  const int q0 = qt * kBQ, r0 = warp * 16;
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // [kBQ][QS]
-  bf16* do_s = q_s + kBQ * QS;                    // [kBQ][QS]
-  bf16* k_s = do_s + kBQ * QS;                    // [kBK][QS]
-  bf16* v_s = k_s + kBK * QS;                     // [kBK][QS]
-  bf16* kt_s = v_s + kBK * QS;                    // [D][TS]
-
-  const bf16* q = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const bf16* dout = static_cast<const bf16*>(p.dout) + b * p.o_sb + h * p.o_sh;
-  const bf16* k = static_cast<const bf16*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const bf16* v = static_cast<const bf16*>(p.v) + b * p.v_sb + hk * p.v_sh;
-
-  stage<D, kBQ>(q_s, nullptr, q, p.q_ss, q0, p.sq, tid);
-  stage<D, kBQ>(do_s, nullptr, dout, p.o_ss, q0, p.sq, tid);
-
-  // this thread's two rows: q0 + r0 + g and q0 + r0 + g + 8
-  int qpos[2], qs[2];
-  float lse[2], delta[2];
-#pragma unroll
-  for (int rr = 0; rr < 2; ++rr) {
-    qpos[rr] = q0 + r0 + g + 8 * rr;
-    const bool in = qpos[rr] < p.sq;
-    lse[rr] = in ? p.lse[row_index(p, b, qpos[rr], h)] : 0.f;
-    delta[rr] = in ? p.delta[row_index(p, b, qpos[rr], h)] : 0.f;
-    qs[rr] = p.qseg != nullptr
-                 ? p.qseg[(size_t)b * p.sq + min(qpos[rr], p.sq - 1)] : 0;
-  }
-  float acc[DT][4];
-#pragma unroll
-  for (int t = 0; t < DT; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
-
-  const int n_kb = kv_tiles(p, q0);
-  for (int kb = 0; kb < n_kb; ++kb) {
-    const int k0 = kb * kBK;
-    __syncthreads();  // the previous iteration is done with k_s, v_s, kt_s
-    stage<D, kBK>(k_s, kt_s, k, p.k_ss, k0, p.sk, tid);
-    stage<D, kBK>(v_s, nullptr, v, p.v_ss, k0, p.sk, tid);
-    __syncthreads();
-
-    // S = Q K^T and dP = dO V^T: this warp's 16 rows x 64 kv columns
-    float s[NT][4], dp[NT][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KK; ++kk) {
-      uint32_t qa[4], oa[4];
-      load_a(qa, q_s, QS, r0, kk * 16, g, tq);
-      load_a(oa, do_s, QS, r0, kk * 16, g, tq);
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const bf16* kp = k_s + (nt * 8 + g) * QS + kk * 16 + tq * 2;
-        const bf16* vp = v_s + (nt * 8 + g) * QS + kk * 16 + tq * 2;
-        mma_bf16(s[nt], qa, ld32(kp), ld32(kp + 8));
-        mma_bf16(dp[nt], oa, ld32(vp), ld32(vp + 8));
-      }
-    }
-
-    // dS, written over S
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int rr = 0; rr < 2; ++rr)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int kpos = k0 + nt * 8 + tq * 2 + e;
-          const int ks = p.kseg != nullptr && kpos < p.sk
-                             ? p.kseg[(size_t)b * p.sk + kpos] : 0;
-          float& x = s[nt][rr * 2 + e];
-          const float pr = live(p, qpos[rr], kpos, qs[rr], ks)
-                               ? expf(x * p.scale - lse[rr]) : 0.f;
-          x = pr * (dp[nt][rr * 2 + e] - delta[rr]) * p.scale;
-        }
-
-    // dQ += dS K
-#pragma unroll
-    for (int t = 0; t < kBK / 16; ++t) {
-      uint32_t a[4];
-      acc_to_a(a, s, t);
-#pragma unroll
-      for (int dt = 0; dt < DT; ++dt) {
-        const bf16* kp = kt_s + (dt * 8 + g) * TS + t * 16 + tq * 2;
-        mma_bf16(acc[dt], a, ld32(kp), ld32(kp + 8));
-      }
-    }
-  }
-
-  bf16* dq = static_cast<bf16*>(p.dq);
-#pragma unroll
-  for (int rr = 0; rr < 2; ++rr) {
-    if (qpos[rr] >= p.sq) continue;
-    bf16* row = dq + row_index(p, b, qpos[rr], h) * D;
-#pragma unroll
-    for (int dt = 0; dt < DT; ++dt)
-      *reinterpret_cast<uint32_t*>(row + dt * 8 + tq * 2) =
-          pack_bf16(acc[dt][rr * 2], acc[dt][rr * 2 + 1]);
-  }
-}
-
-// ---------------------------------------------------------------------
 // K4 for Hopper, bf16: wgmma on operands in shared memory, filled by TMA
 // through an mbarrier ring. One warpgroup (128 threads) per (64-row kv
 // tile, kv head, batch row); warp w owns kv rows 16w..16w+15. K and V are
@@ -574,7 +389,6 @@ __global__ void __launch_bounds__(kMmaThreads) bwd_dq_mma(BwdParams p) {
 // row), then tile 1, ...
 constexpr int kWgThreads = 128;
 constexpr int kStages = 2;  // ring slots of (Q, dO, lse, delta, q segments)
-constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D>
 struct DkvSmem {  // byte offsets into the 1024-aligned shared memory
@@ -756,6 +570,205 @@ bwd_dkv_wgmma(const __grid_constant__ CUtensorMap kmap,
   }
 }
 
+// ---------------------------------------------------------------------
+// K3 for Hopper, bf16: K2's loop with one more product. One warpgroup
+// (128 threads) per (64-row q tile, q head, batch row); warp w owns q rows
+// 16w..16w+15. Thread 0 loads the Q and dO tiles once by TMA and keeps
+// kStages K/V tiles in flight through the mbarrier ring, from kv tile 0 up
+// to the causal limit; lse (times log2(e)) and delta stay in registers, and
+// the kv tile's segment ids are staged in shared memory one tile ahead.
+// Per kv tile:
+//   S = Q K^T and dP = dO V^T: wgmma, all four operands K-major as stored;
+//   p = exp2(s scale log2(e) - lse log2(e)), zeroed for a masked pair
+//     without taking its exp (masks tested only on tiles that cross the
+//     causal limit, touch the sk edge, or carry segment ids), and
+//     ds = p (dp - delta) scale, on the accumulator registers;
+//   dQ += dS K: wgmma with dS rounded to bf16 in registers as the A
+//     operand (as the TPU kernel rounds it) and K read MN-major through
+//     the descriptor's transpose bit: no transposed copy of K.
+// dQ stays in float32 registers. The grid runs q tiles heaviest first.
+template <int D>
+struct DqSmem {  // byte offsets into the 1024-aligned shared memory
+  static constexpr int tile = 64 * D * 2;  // one [64][D] bf16 tile
+  static constexpr int q = 0, dout = tile;
+  static constexpr int k = 2 * tile;                 // kStages K tiles
+  static constexpr int v = k + kStages * tile;       // kStages V tiles
+  static constexpr int kseg = v + kStages * tile;    // [2][kBK] int
+  static constexpr int bars = kseg + 2 * kBK * 4;    // Q/dO, then stages
+  static constexpr int bytes = bars + (1 + kStages) * 8;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kWgThreads)
+bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
+             const __grid_constant__ CUtensorMap kmap,
+             const __grid_constant__ CUtensorMap vmap,
+             const __grid_constant__ CUtensorMap omap, BwdParams p, int B) {
+  using L = DqSmem<D>;
+  constexpr int NO = D / 2;  // dq accumulators per thread
+  constexpr int KK = D / 16;
+  const int n_qt = (p.sq + kBQ - 1) / kBQ;
+  // heaviest first: under causal masking the last q tiles see most kv
+  const int qt = n_qt - 1 - (int)(blockIdx.x / (p.hq * B));
+  const int rest = blockIdx.x % (p.hq * B);
+  const int h = rest % p.hq, b = rest / p.hq;
+  const int hk = h / (p.hq / p.hkv);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, tq = lane & 3;
+  const int q0 = qt * kBQ, offset = p.sk - p.sq;
+  const float scale_log2 = p.scale * kLog2e;
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_smem(smem_raw);
+  unsigned char* q_s = smem + L::q;
+  unsigned char* do_s = smem + L::dout;
+  unsigned char* k_s = smem + L::k;
+  unsigned char* v_s = smem + L::v;
+  int* kseg_s = reinterpret_cast<int*>(smem + L::kseg);
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* full = qbar + 1;
+
+  const int n_kb = kv_tiles(p, q0);
+  auto load_kv = [&](int kb, int st) {  // thread 0
+    mbar_expect_tx(&full[st], 2 * L::tile);
+    tma_load_tile<D, kBK>(k_s + st * L::tile, &kmap, &full[st], kb * kBK, hk,
+                          b);
+    tma_load_tile<D, kBK>(v_s + st * L::tile, &vmap, &full[st], kb * kBK, hk,
+                          b);
+  };
+  if (tid == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < kStages; ++s) mbar_init(&full[s], 1);
+    mbar_fence_init();
+    mbar_expect_tx(qbar, 2 * L::tile);
+    tma_load_tile<D, kBQ>(q_s, &qmap, qbar, q0, h, b);
+    tma_load_tile<D, kBQ>(do_s, &omap, qbar, q0, h, b);
+    for (int s = 0; s < kStages && s < n_kb; ++s) load_kv(s, s);
+  }
+  if (p.kseg != nullptr && tid < kBK)
+    kseg_s[tid] = tid < p.sk ? p.kseg[(size_t)b * p.sk + tid] : 0;
+
+  // this thread's two rows: q0 + 16 warp + g and 8 below
+  int qpos[2], qs[2];
+  float lse2[2], delta[2];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    qpos[rr] = q0 + warp * 16 + g + 8 * rr;
+    const bool in = qpos[rr] < p.sq;
+    lse2[rr] = in ? p.lse[row_index(p, b, qpos[rr], h)] * kLog2e : 0.f;
+    delta[rr] = in ? p.delta[row_index(p, b, qpos[rr], h)] : 0.f;
+    qs[rr] = p.qseg != nullptr
+                 ? p.qseg[(size_t)b * p.sq + min(qpos[rr], p.sq - 1)] : 0;
+  }
+  float acc[NO], s[32], dp[32];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+  __syncthreads();  // barriers initialised, first segment ids staged
+  mbar_wait(qbar, 0);
+
+  for (int kb = 0; kb < n_kb; ++kb) {
+    const int st = kb % kStages, k0 = kb * kBK;
+    const unsigned char* kt = k_s + st * L::tile;
+    const unsigned char* vt = v_s + st * L::tile;
+    mbar_wait(&full[st], (kb / kStages) & 1);
+
+    // S = Q K^T and dP = dO V^T
+    wgmma_fence();
+    fence_regs<32>(s);
+    fence_regs<32>(dp);
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk)
+      wgmma_ss<64>(s, desc_kmajor<D, kBQ>(q_s, kk),
+                   desc_kmajor<D, kBK>(kt, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk)
+      wgmma_ss<64>(dp, desc_kmajor<D, kBQ>(do_s, kk),
+                   desc_kmajor<D, kBK>(vt, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<32>(s);
+    fence_regs<32>(dp);
+
+    // dS over S; rows past sq have q = do = 0, lse = delta = 0: ds = 0
+    const bool need_mask = p.kseg != nullptr || k0 + kBK > p.sk ||
+                           (p.causal && k0 + kBK - 1 > q0 + offset);
+    const int* ks = kseg_s + (kb & 1) * kBK;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * j + 2 * tq + e, idx = 4 * j + 2 * rr + e;
+          bool keep = true;
+          if (need_mask) {
+            const int kpos = k0 + c;
+            keep = kpos < p.sk;
+            if (p.causal) keep = keep && kpos <= qpos[rr] + offset;
+            if (p.kseg != nullptr) keep = keep && ks[c] == qs[rr];
+          }
+          const float pr =
+              keep ? exp2f(s[idx] * scale_log2 - lse2[rr]) : 0.f;
+          s[idx] = pr * (dp[idx] - delta[rr]) * p.scale;
+        }
+
+    // dQ += dS K: dS from registers, K MN-major
+    uint32_t a[4][4];
+#pragma unroll
+    for (int t = 0; t < kBK / 16; ++t) wg_frag(a[t], s, t);
+    wgmma_fence();
+    fence_regs<NO>(acc);
+#pragma unroll
+    for (int t = 0; t < kBK / 16; ++t)
+      wgmma_rs<D>(acc, a[t], desc_mnmajor<D, kBK>(kt, t), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<NO>(acc);
+
+    // the next tile's segment ids, then refill this stage
+    if (p.kseg != nullptr && tid < kBK && kb + 1 < n_kb) {
+      const int kpos = k0 + kBK + tid;
+      kseg_s[((kb + 1) & 1) * kBK + tid] =
+          kpos < p.sk ? p.kseg[(size_t)b * p.sk + kpos] : 0;
+    }
+    __syncthreads();  // every thread is done with stage st
+    if (tid == 0 && kb + kStages < n_kb) load_kv(kb + kStages, st);
+  }
+
+  bf16* dq = static_cast<bf16*>(p.dq);
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    if (qpos[rr] >= p.sq) continue;
+    bf16* row = dq + row_index(p, b, qpos[rr], h) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(row + j * 8 + tq * 2) =
+          pack_bf16(acc[4 * j + 2 * rr], acc[4 * j + 2 * rr + 1]);
+  }
+}
+
+template <int D>
+int launch_dq_wgmma(const BwdParams& p, int B, cudaStream_t stream) {
+  CUtensorMap qm, km, vm, om;
+  int err = make_map(&qm, p.q, B, p.sq, p.hq, D, p.q_sb, p.q_ss, p.q_sh, kBQ);
+  if (err == 0)
+    err = make_map(&km, p.k, B, p.sk, p.hkv, D, p.k_sb, p.k_ss, p.k_sh, kBK);
+  if (err == 0)
+    err = make_map(&vm, p.v, B, p.sk, p.hkv, D, p.v_sb, p.v_ss, p.v_sh, kBK);
+  if (err == 0)
+    err = make_map(&om, p.dout, B, p.sq, p.hq, D, p.o_sb, p.o_ss, p.o_sh,
+                   kBQ);
+  if (err != 0) return err;
+  const int smem = DqSmem<D>::bytes + kSmemSlack;
+  cudaFuncSetAttribute(bwd_dq_wgmma<D>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int blocks = (p.sq + kBQ - 1) / kBQ * p.hq * B;
+  bwd_dq_wgmma<D><<<blocks, kWgThreads, smem, stream>>>(qm, km, vm, om, p, B);
+  return (int)cudaGetLastError();
+}
+
 template <int D>
 int launch_dkv_wgmma(const BwdParams& p, int B, cudaStream_t stream) {
   CUtensorMap km, vm, qm, om;
@@ -788,12 +801,8 @@ int launch(Kernel kernel, dim3 grid, int threads, size_t smem,
 
 template <int D>
 int dq(int dtype, const BwdParams& p, int B, cudaStream_t s) {
+  if (dtype == DTYPE_BF16) return launch_dq_wgmma<D>(p, B, s);
   const dim3 grid((p.sq + kBQ - 1) / kBQ, p.hq, B);
-  if (dtype == DTYPE_BF16)
-    return launch(bwd_dq_mma<D>, grid, kMmaThreads,
-                  sizeof(bf16) * ((size_t)(2 * kBQ + 2 * kBK) * (D + 8) +
-                                  (size_t)D * (kBK + 8)),
-                  p, s);
   return launch(bwd_dq_f32<D>, grid, kThreads,
                 sizeof(float) * ((size_t)(2 * kBQ + 2 * kBK) * (D + 1) +
                                  (size_t)kBQ * (kBK + 1)),

@@ -195,8 +195,6 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // runs the q tiles heaviest first.
 constexpr int kWgThreads = 128;
 constexpr int kStages = 2;  // K/V tiles in flight
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
 using bf16 = __nv_bfloat16;
 
 template <int D>

@@ -1,14 +1,15 @@
 // Hopper (sm_90a) building blocks shared by the wgmma/TMA kernels K2
-// (flash_fwd.cu) and K4 (flash_bwd.cu), as raw PTX in the style of
-// common.cuh:
+// (flash_fwd.cu), K3 and K4 (flash_bwd.cu) and the bulk-copy kernel K1
+// (paged_decode.cu), as raw PTX in the style of common.cuh:
 //   - mbarrier init / arrive.expect_tx / try_wait.parity, with a clock
 //     guard that traps a wait which never completes (a wrong parity or
 //     byte count), so a deadlock ends the launch with an error instead of
 //     hanging the card;
-//   - cp.async.bulk.tensor (TMA) loads of 4-d boxes into shared memory;
+//   - cp.async.bulk.tensor (TMA) loads of 4-d boxes into shared memory,
+//     and the 1-d bulk copy of a contiguous range (no tensor map);
 //   - wgmma.mma_async m64nNk16, f32 += bf16 * bf16, with A from shared
 //     memory (wgmma_ss) or from registers (wgmma_rs), and wgmma.fence /
-//     commit_group / wait_group;
+//     commit_group / wait_group; one warp's mma.sync m16n8k16 (mma_bf16);
 //   - the shared-memory matrix descriptor of a tile loaded by TMA;
 //   - host-side tensor maps (cuTensorMapEncodeTiled, reached through
 //     cudaGetDriverEntryPoint so the library needs no -lcuda).
@@ -98,6 +99,18 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Copy `bytes` contiguous bytes (a multiple of 16, both addresses 16-byte
+// aligned) from device memory to shared memory at dst; completion is
+// counted on bar. The 1-d bulk copy needs no tensor map.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
 }
 
@@ -263,6 +276,21 @@ __device__ __forceinline__ void wgmma_rs<128>(float* d, const uint32_t* a,
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
         "r"(scale_d));
+}
+
+// exp(x) = exp2(x * kLog2e): the kernels run their softmax in base 2
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// mma.sync m16n8k16, f32 c += bf16 a (row) * bf16 b (col): one warp's
+// product, for the kernels whose narrow tiles do not fill a warpgroup's
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

@@ -12,7 +12,8 @@ compare directly).
   (``csrc/paged_decode.cu``): on a CUDA tensor it launches the kernel or
   raises, on a CPU tensor it runs ``paged_attention_decode_plain``.
   ``paged_attention_decode.launches`` counts kernel launches (the split
-  pass and its merge pass count as one).
+  pass and its merge pass count as one). In bf16 the kernel takes head
+  dims 64 and 128.
 - ``paged_prefill_attention`` splits prefill into causal attention among
   the new tokens and segment-masked attention over the cached prefix
   pages, both through ``flash_attention`` (kernel K2), merged by
@@ -148,14 +149,17 @@ def _decode_launch(q, kv_pages, block_tables, lengths, *, scale: float):
     if not (q.is_contiguous() and kv_pages.is_contiguous()):
         raise ValueError("paged_decode needs contiguous q and pool")
     if (d2 * kv_pages.element_size()) % 16 or kv_pages.data_ptr() % 16:
-        raise ValueError("paged_decode stages 16-byte vectors: a pool row "
+        raise ValueError("paged_decode copies 16-byte units: a pool row "
                          "must be a multiple of 16 bytes, 16-byte aligned")
+    lib = library("paged_decode")
+    if not lib.paged_decode_supports(_DTYPE_CODES[q.dtype], d):
+        raise ValueError(f"paged_decode has no {q.dtype} kernel for head "
+                         f"dim {d}")
     bt = block_tables.to(device=q.device, dtype=torch.int32).contiguous()
     lens = lengths.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty_like(q)
     if b == 0:
         return out
-    lib = library("paged_decode")
     # per-split partial results, merged by the kernel's second pass
     n_split = lib.paged_decode_splits(page, mp)
     part_acc = torch.empty((b, hq, n_split, d), dtype=torch.float32,

@@ -138,19 +138,39 @@ def test_chip_smoke_watchdog_ends_a_hung_phase():
     assert "phase hang (deadline 1 s)" in proc.stdout
 
 
+def _split_rows(page):
+    """Rows of one K1 split: the smallest block table with two splits
+    is one page wider than a split."""
+    lib = _build.library("paged_decode")
+    pages = next(m for m in range(1, 4096)
+                 if lib.paged_decode_splits(page, m + 1) == 2)
+    return pages * page
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_decode_kernel_matches_plain_on_card(dtype):
+@pytest.mark.parametrize("hq,hkv", [(8, 8), (16, 4), (16, 2),
+                                    (32, 2), (24, 2)])  # rep 1, 4, 8, 16, 12
+@pytest.mark.parametrize("page", [8, 16, 32])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_decode_kernel_matches_plain_on_card(dtype, hq, hkv, page, d):
+    """K1 over a NaN-filled pool (the last live page of every row holds
+    stale NaN rows) at lengths 0, a page edge +-1, a split edge +-1 and
+    the block table's full width."""
     _need_card()
     rng = np.random.default_rng(8)
     dt = getattr(torch, dtype)
+    mp = 512 // page
+    split = _split_rows(page)
+    lengths = [0, page - 1, page, page + 1, split - 1, split, split + 1,
+               300, mp * page]
     q, pool, bt, lens = _decode_inputs(
-        rng, b=5, hq=8, hkv=2, d=128, page=16, num_pages=64, mp=8,
-        lengths=[0, 1, 16, 17, 128])
+        rng, b=len(lengths), hq=hq, hkv=hkv, d=d, page=page,
+        num_pages=1 + len(lengths) * mp, mp=mp, lengths=lengths)
     args = (q.to("cuda", dt), pool.to("cuda", dt), bt.cuda(), lens.cuda())
     before = t_paged.paged_attention_decode.launches
     got = t_paged.paged_attention_decode(*args)
-    want = t_paged.paged_attention_decode_plain(*args, scale=128 ** -0.5)
+    want = t_paged.paged_attention_decode_plain(*args, scale=d ** -0.5)
     torch.cuda.synchronize()
     assert t_paged.paged_attention_decode.launches == before + 1
     assert torch.isfinite(got).all() and (got[0] == 0).all()
@@ -309,6 +329,13 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="zero-length"):
         t_flash.flash_attention(buf[:2048].view(2, 8, 2, 64), empty, empty,
                                 causal=False)
+    # K1 in bf16 takes head dims 16, 32, 64 and 128
+    pool = torch.zeros(4, 2, 16, 16, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim 8"):
+        t_paged.paged_attention_decode(
+            torch.zeros(1, 4, 8, device="cuda", dtype=torch.bfloat16), pool,
+            torch.ones(1, 2, device="cuda", dtype=torch.int32),
+            torch.ones(1, device="cuda", dtype=torch.int32))
     # the backward wrappers: type, head dim, alignment, lse/delta layout
     x = torch.zeros(1, 8, 2, 64, device="cuda", dtype=torch.bfloat16)
     vec = torch.zeros(1, 8, 2, device="cuda")
