@@ -13,12 +13,15 @@ compare directly).
   raises, on a CPU tensor it runs ``paged_attention_decode_plain``.
   ``paged_attention_decode.launches`` counts kernel launches (the split
   pass and its merge pass count as one). In bf16 the kernel takes head
-  dims 64 and 128.
+  dims 16, 32, 64 and 128 (``DECODE_HEAD_DIMS_BF16``), in float32 any
+  head dim whose pool row is a multiple of 16 bytes.
 - ``paged_prefill_attention`` splits prefill into causal attention among
   the new tokens and segment-masked attention over the cached prefix
   pages, both through ``flash_attention`` (kernel K2), merged by
   log-sum-exp.
 - ``paged_attention_reference`` is the gather-based oracle of the tests.
+- ``check_kernel_head_dim`` refuses, when a CUDA model is built, a head
+  dim that K1 or K2-K4 lack (the plain versions take any).
 """
 
 from __future__ import annotations
@@ -29,9 +32,40 @@ import torch
 
 from ._build import check, library
 from .attention import NEG_INF
-from .flash_attention import flash_attention
+from .flash_attention import KERNEL_HEAD_DIMS, flash_attention
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# head dims of the bf16 K1 kernel: the library's paged_decode_supports
+# (csrc/paged_decode.cu) answers the same, as a gpu test checks
+DECODE_HEAD_DIMS_BF16 = (16, 32, 64, 128)
+
+
+def check_kernel_head_dim(head_dim: int, dtype: torch.dtype, device, *,
+                          decode: bool, owner: str) -> None:
+    """Raise ValueError, naming the kernel, when a model on a CUDA device
+    has a head dim its kernels lack: K2/K3/K4 take KERNEL_HEAD_DIMS; with
+    ``decode`` (the paged serving path) K1 too, which takes
+    DECODE_HEAD_DIMS_BF16 in bf16 and, in float32, a pool row
+    (2 * head_dim floats) of a multiple of 16 bytes. On any other device
+    the plain versions run and every head dim is taken."""
+    if torch.device(device).type != "cuda":
+        return
+    if head_dim not in KERNEL_HEAD_DIMS:
+        raise ValueError(
+            f"{owner}: head dim {head_dim} is not taken by the flash "
+            f"attention kernels K2/K3/K4 (flash_fwd, flash_bwd), which take "
+            f"{KERNEL_HEAD_DIMS}")
+    if not decode:
+        return
+    if dtype == torch.bfloat16:
+        ok = head_dim in DECODE_HEAD_DIMS_BF16
+    else:
+        ok = (2 * head_dim * torch.finfo(dtype).bits // 8) % 16 == 0
+    if not ok:
+        raise ValueError(
+            f"{owner}: head dim {head_dim} in {dtype} is not taken by the "
+            f"paged decode kernel K1 (paged_decode), which takes "
+            f"{DECODE_HEAD_DIMS_BF16} in bf16")
 
 
 def make_kv_pages(num_kv_heads: int, num_pages: int, page_size: int,
@@ -227,10 +261,14 @@ def paged_prefill_attention(q: torch.Tensor, k_new: torch.Tensor,
     an optional cached prefix held in pages, merged by log-sum-exp.
 
     q/k_new/v_new: [B, S, H*, D], contiguous from each row's first
-    position positions[:, 0] (the cached-prefix length, a page multiple).
-    ctx_pages is the number of block-table columns the prefix may span;
-    0 skips the prefix part (no page reads). Rows with a shorter prefix
-    mask the tail; rows with none mask it all.
+    position positions[:, 0], the cached-prefix length. That length need
+    not be a page multiple: the prefix part masks kv positions
+    ``>= positions[:, 0]`` one by one, which speculative verify relies on
+    (its rows start at total - 1); a prefix-cache hit or chunk k > 0 of a
+    chunked prefill starts at a page multiple. ctx_pages is the number of
+    block-table columns the prefix may span; 0 skips the prefix part (no
+    page reads). Rows with a shorter prefix mask the tail; rows with none
+    mask it all.
     """
     d = q.shape[-1]
     scale_f = float(scale if scale is not None else d ** -0.5)

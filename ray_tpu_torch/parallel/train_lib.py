@@ -25,6 +25,7 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 import torch
 
 from ..models.convert import init_params, load_params
+from ..ops.paged_attention import check_kernel_head_dim
 
 
 @dataclass
@@ -164,6 +165,11 @@ class ShardedTrainer:
             raise RuntimeError(
                 "ShardedTrainer device is 'cuda' but no CUDA device is "
                 "available (pass device='cpu' to run on the CPU)")
+        cfg = getattr(model, "cfg", None)
+        if cfg is not None and cfg.attention_impl in (None, "flash"):
+            # the training path runs K2 forward and K3/K4 backward
+            check_kernel_head_dim(cfg.head_dim_, model.dtype, self.device,
+                                  decode=False, owner="ShardedTrainer")
         self.model = model
         self.tx = optimizer or default_optimizer()
         self.loss_fn = loss_fn or self._default_loss

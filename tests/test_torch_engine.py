@@ -155,9 +155,7 @@ def test_cuda_engine_without_card_raises():
         LLMEngine(EngineConfig(**ENGINE_CFG))
 
 
-@pytest.mark.parametrize("option", [dict(tp=2), dict(pp=2),
-                                    dict(prefill_chunk_tokens=64),
-                                    dict(spec_lookahead=4)])
+@pytest.mark.parametrize("option", [dict(tp=2), dict(pp=2)])
 def test_unported_engine_options_are_refused(option):
     with pytest.raises(ValueError, match="not supported"):
         EngineConfig(**CPU_CFG, **option)

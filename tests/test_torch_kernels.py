@@ -351,3 +351,16 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
             fn(wide[..., 1:65], x, x, x, vec, vec, **kw)
         with pytest.raises(ValueError, match="lse"):
             fn(x, x, x, x, vec.double(), vec, **kw)
+
+
+@pytest.mark.gpu
+def test_decode_head_dims_match_the_library():
+    """The engine's construction-time check (DECODE_HEAD_DIMS_BF16, and a
+    16-byte float32 pool row) answers as the library's
+    paged_decode_supports does, for every head dim up to 256."""
+    _need_card()
+    lib = _build.library("paged_decode")
+    for d in range(1, 257):
+        assert bool(lib.paged_decode_supports(1, d)) == \
+            (d in t_paged.DECODE_HEAD_DIMS_BF16), d
+        assert lib.paged_decode_supports(0, d)
