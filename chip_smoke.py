@@ -39,6 +39,18 @@ every thread's traceback and exit code 1.
    mid-decode (finish "expired", pages returned); measure_prefill at
    4 x 2048 tokens. K1 and K2 (self and ctx) launch counts must be
    non-zero and are added to phase 4's;
+4c. moe: mixtral-8x7b at full width in bf16 (seeded weights made on the
+   card), as deep as leaves 6 GiB of the card free, through phase 4's
+   engine settings and traffic (K1 and K2 launches added to phase 4's),
+   a profiled steady-decode window and prefill wave with the MoE layers'
+   time apart (expert products, routing, dispatch and combine), the share
+   of real (token, choice) assignments dropped by capacity in prefill and
+   decode (a forward hook repeats the routing), and measure_prefill(2048)
+   beside a rate counted from active FLOPs;
+4d. moe_reference: at Mixtral width with 2 layers in float32, first-
+   prefill logits and the routing behind them, and greedy tokens in the
+   legacy, chunked and speculative engines: the card's tokens must equal
+   the CPU's in each mode;
 5. reference: at llama3-8b width with 2 layers in float32, first-prefill
    logits and greedy tokens of the kernel path on the card must match the
    plain path on the CPU, in the legacy scheduler, with chunked prefill
@@ -47,12 +59,18 @@ every thread's traceback and exit code 1.
    dk/dv) against their plain versions at llama-1b's training shapes
    (bf16, B 4, S 2048, Hq 32, Hkv 8, D 64, causal), plus a packed-segment
    case and an sq < sk case, with CUDA-event times of each kernel, its
-   plain version and SDPA (forward, and backward for K3/K4);
+   plain version and SDPA (forward, and backward for K3/K4); and at
+   moe_trainer's shapes (Mixtral: B 2, S 2048, Hq 32, Hkv 8, D 128),
+   causal and with packed segments;
 7. trainer: ShardedTrainer on llama-1b at full width and depth (float32
    params, bf16 compute, remat "nothing", fused loss) takes 6 steps on one
    batch of 4 x 2048 seeded tokens; the loss must fall and K2/K3/K4 must
    have launched as many times as the layers need; then one profiled
    step;
+7b. moe_trainer: ShardedTrainer at Mixtral width with 2 layers (float32
+   params, bf16 compute, remat "nothing"), 4 steps on 2 x 2048 tokens:
+   the loss must fall, the router terms must be at least 0.99 x coef per
+   layer, and K2/K3/K4 must have launched as the layers need;
 8. train reference: at llama-1b width with 2 layers in float32, one step
    on the card and on the CPU's plain path from the same parameters must
    give the same loss, grad norm and updated parameters.
@@ -68,6 +86,7 @@ Then one JSON line of per-kernel numbers, and as the last line
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import faulthandler
 import gc
@@ -119,13 +138,14 @@ NOISY_GRAD = 1e-6
 
 # Each phase's deadline in seconds: about five times its time on an H100
 # (logged by run_phase: build 23.9 s with the earlier tree's kernels,
-# kernels 9.2, engine 33.1, engine_v2 28.8, reference 26.1 with its
-# chunked and speculative engines, train_kernels 3.4, trainer 5.7,
-# train_reference 5.7; on a slower host build 42.2, kernels 17.4, engine
-# 58.3), and at least 30 s
+# kernels 9.2, engine 33.1, engine_v2 28.8, moe 69.5, moe_reference 39.6,
+# reference 26.1 with its chunked and speculative engines, train_kernels
+# 3.4, trainer 5.7, moe_trainer 1.3, train_reference 5.7; on a slower
+# host build 42.2, kernels 17.4, engine 58.3), and at least 30 s
 DEADLINES_S = {"device": 30, "build": 120, "kernels": 60, "engine": 240,
-               "engine_v2": 150, "reference": 150, "train_kernels": 30,
-               "trainer": 45, "train_reference": 45}
+               "engine_v2": 150, "moe": 350, "moe_reference": 200,
+               "reference": 150, "train_kernels": 30, "trainer": 45,
+               "moe_trainer": 30, "train_reference": 45}
 
 
 def log(msg: str) -> None:
@@ -594,9 +614,9 @@ def add_bounds(results):
 
 
 def check_training_kernels(torch, flush):
-    """Phase 6: K2, K3 and K4 at llama-1b's training shapes against their
-    plain versions; K3/K4 get the kernels' own lse and delta, so each is
-    checked alone."""
+    """Phase 6: K2, K3 and K4 at llama-1b's training shapes and at
+    moe_trainer's (Mixtral's head dim 128) against their plain versions;
+    K3/K4 get the kernels' own lse and delta, so each is checked alone."""
     from ray_tpu_torch.ops.flash_attention import (
         attention_delta, flash_attention, flash_attention_plain,
         flash_bwd_dkv, flash_bwd_dkv_plain, flash_bwd_dq, flash_bwd_dq_plain)
@@ -610,7 +630,8 @@ def check_training_kernels(torch, flush):
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(bf16)
 
-    def run(name, sq, sk, segs):
+    def run(name, sq, sk, segs, b=b, hq=hq, hkv=hkv, d=d):
+        scale = d ** -0.5
         # v is a strided view of a fused k|v tensor, as in training
         q, kv, do = randn(b, sq, hq, d), randn(b, sk, 2 * hkv, d), \
             randn(b, sq, hq, d)
@@ -649,6 +670,11 @@ def check_training_kernels(torch, flush):
     segs = torch.stack([seg, seg, torch.zeros_like(seg), seg.flip(0)])
     run("train kernels, packed segments", s, s, (segs, segs))
     run("train kernels, sq < sk", 512, s, None)
+    # moe_trainer's shapes: Mixtral's D 128, the kernels' D-128 builds
+    for name, mix_segs in (("causal", None),
+                           ("packed segments", (segs[:2], segs[:2]))):
+        run(f"train kernels at Mixtral's shapes, {name}", s, s, mix_segs,
+            b=2, hq=32, hkv=8, d=128)
     (q, k, v, do, o, lse, delta, kw), errs = run("train kernels, causal",
                                                  s, s, None)
 
@@ -942,18 +968,21 @@ def serve(engine, requests, late):
     return out, ttft, decode_tokens / (t_end - t_first)
 
 
-def run_engine(torch, flush_counts):
-    """Phase 4: llama3-8b, full width and depth, bf16, 8 requests."""
+def run_engine(torch, flush_counts, **config):
+    """Phase 4: llama3-8b, full width and depth, bf16, 8 requests (and
+    phase moe's traffic: ENGINE_8B with `config` in place)."""
     from ray_tpu_torch.serve.llm import EngineConfig, LLMEngine
     from ray_tpu_torch.serve.llm import SamplingParams as SP
 
     t0 = time.perf_counter()
-    engine = LLMEngine(EngineConfig(**ENGINE_8B))
+    engine = LLMEngine(EngineConfig(**{**ENGINE_8B, **config}))
     torch.cuda.synchronize()
-    log(f"engine built (llama3-8b, {engine.model_cfg.num_layers} layers, "
+    log(f"engine built ({engine.config.model}, "
+        f"{engine.model_cfg.num_layers} layers, "
         f"bf16 weights made on the card) in "
         f"{time.perf_counter() - t0:.1f} s; "
-        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated, "
+        f"{torch.cuda.mem_get_info()[0] / 2**30:.2f} GiB free")
     rng = np.random.default_rng(1)
     vocab = engine.model_cfg.vocab_size
 
@@ -987,7 +1016,8 @@ def run_engine(torch, flush_counts):
 def profile_decode(torch, engine):
     """Steady decode with all 8 slots busy (300-token prompts): tokens/s
     over 6 unprofiled steps, then 6 steps under torch.profiler for the
-    device's busy share and the kernels that take its time."""
+    device's busy share and the kernels that take its time (under
+    annotate_moe, also the MoE layers' time, moe_summary)."""
     from torch.profiler import ProfilerActivity, profile
 
     from ray_tpu_torch.serve.llm import SamplingParams as SP
@@ -1040,7 +1070,7 @@ def profile_decode(torch, engine):
     log(f"steady decode (8 slots, K=4): {out['decode_tok_s']:.1f} tok/s, "
         f"{out['step_ms']:.2f} ms per step; device busy "
         f"{100 * out['device_busy_share']:.1f}% of a profiled window")
-    log_kernels(out)
+    log_kernels(out, moe_summary(prof))
     log(f"synchronising calls in 2 engine steps: {len(syncs)} "
         f"{sorted(set(syncs))[:3]}")
     assert not syncs, "a dispatch or harvest synchronised the host"
@@ -1063,7 +1093,7 @@ def device_summary(prof, wall_s):
     """Device busy time, its share of `wall_s`, the device time of each
     kernel family and the top kernels of a torch.profiler window."""
     events = [e for e in prof.key_averages()
-              if e.device_type.name == "CUDA"]
+              if e.device_type.name == "CUDA" and e.key not in ANNOTATIONS]
     busy_us = sum(e.self_device_time_total for e in events)
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
     families = {name: 0.0 for name, _ in FAMILIES}
@@ -1081,16 +1111,90 @@ def device_summary(prof, wall_s):
                              "calls": e.count} for e in top]}
 
 
-def log_kernels(summary):
+# record_function ranges of annotate_moe: on the device they are spans
+# over other kernels, not kernels of their own
+ANNOTATIONS = ("moe_mlp", "moe_route")
+
+
+@contextlib.contextmanager
+def annotate_moe():
+    """While open, every MoEMLP forward and its routing (moe_route) run
+    inside record_function ranges, which moe_summary reads."""
+    from torch.autograd.profiler import record_function
+
+    from ray_tpu_torch.models import llama
+
+    forward, route = llama.MoEMLP.forward, llama.moe_route
+
+    def annotated_forward(self, x, *args):
+        with record_function("moe_mlp"):
+            return forward(self, x, *args)
+
+    def annotated_route(*args):
+        with record_function("moe_route"):
+            return route(*args)
+
+    llama.MoEMLP.forward, llama.moe_route = annotated_forward, \
+        annotated_route
+    try:
+        yield
+    finally:
+        llama.MoEMLP.forward, llama.moe_route = forward, route
+
+
+def moe_summary(prof):
+    """Device ms of a profile's kernels launched inside annotate_moe's
+    ranges, each kernel counted once, at the aten op that launched it
+    (the profiler also hangs a kernel on helper events under that op,
+    such as "Activity Buffer Request", and an op's device total counts
+    both): the expert products (aten::bmm), the routing (inside
+    moe_route) and the rest of the MoE layers (dispatch and combine
+    gathers, SiLU, the router term); `attributed_ms` is every kernel so
+    counted, MoE or not, to hold against the device's busy time. None
+    when the profile has no MoE range."""
+    out = dict.fromkeys(("moe_ms", "expert_products_ms", "routing_ms",
+                         "dispatch_combine_ms", "attributed_ms"), 0.0)
+    seen = False
+    for e in prof.events():
+        if e.device_type.name != "CPU":
+            continue
+        seen = seen or e.name == "moe_mlp"
+        if not e.name.startswith("aten::") or not e.kernels:
+            continue
+        ms = sum(k.duration for k in e.kernels) / 1e3
+        out["attributed_ms"] += ms
+        ranges, parent = set(), e.cpu_parent
+        while parent is not None:
+            ranges.add(parent.name)
+            parent = parent.cpu_parent
+        if "moe_mlp" not in ranges:
+            continue
+        key = ("expert_products_ms" if e.name == "aten::bmm" else
+               "routing_ms" if "moe_route" in ranges else
+               "dispatch_combine_ms")
+        out[key] += ms
+        out["moe_ms"] += ms
+    return out if seen else None
+
+
+def log_kernels(summary, moe=None):
+    """Log a device_summary; with `moe` (a moe_summary) store it in the
+    summary and log the MoE layers' time, which the families hold (the
+    expert products among the matmuls)."""
     log("  by family: " + ", ".join(
         f"{name} {ms:.1f} ms" for name, ms in summary["families_ms"].items()))
+    if moe is not None:
+        summary["moe"] = moe
+        log("  of which in the MoE layers: " + ", ".join(
+            f"{name} {ms:.1f}" for name, ms in moe.items()))
     for k in summary["top_kernels"]:
         log(f"  {k['ms']:9.3f} ms {k['calls']:6d} calls  {k['name']}")
 
 
 def profile_prefill(torch, engine):
     """One prefill wave, 4 prompts of 1000 tokens (bucket 1024) asking
-    for one token each, under torch.profiler: where prefill time goes."""
+    for one token each, under torch.profiler: where prefill time goes
+    (under annotate_moe, as profile_decode's)."""
     from torch.profiler import ProfilerActivity, profile
 
     from ray_tpu_torch.serve.llm import SamplingParams as SP
@@ -1117,7 +1221,7 @@ def profile_prefill(torch, engine):
     log(f"prefill wave (4 x 1000 tokens, bucket 1024): "
         f"{out['profiled_wall_ms']:.1f} ms wall under the profiler, device "
         f"busy {out['device_busy_ms']:.1f} ms")
-    log_kernels(out)
+    log_kernels(out, moe_summary(prof))
     return out
 
 
@@ -1287,13 +1391,16 @@ def run_engine_v2(torch, reset_counts, smi):
     drain(pre, out, fin)
     assert fin == {"pd": "prefill_done"}, fin
     blob = pre.pop_extracted("pd")
-    assert blob["kv_dtype"] == "bfloat16" and blob["kv"].dtype == np.uint16
+    # bf16 pages leave widened exactly to float32
+    assert blob["kv_dtype"] == "bfloat16" and blob["kv"].dtype == np.float32
     dec.inject_request("pd", blob, SP(max_tokens=32))
     for d in dec.step():  # admits the injection, dispatches decode
         out["pd"].extend(d.new_token_ids)
     idx = torch.tensor(dec.requests["pd"].pages, device=dec.device)
     injected = dec.kv_pages.index_select(1, idx).view(torch.int16).cpu()
-    sent = torch.from_numpy(blob["kv"].view(np.int16))
+    sent = torch.from_numpy(blob["kv"]).to(torch.bfloat16).view(torch.int16)
+    assert torch.equal(sent.view(torch.bfloat16).float(),
+                       torch.from_numpy(blob["kv"])), "a blob value is no bf16"
     # the prompt's rows; the first decode step writes row len(prompt) on
     pages_equal = torch.equal(page_rows(injected, len(pd_prompt)),
                               page_rows(sent, len(pd_prompt)))
@@ -1345,6 +1452,402 @@ def run_engine_v2(torch, reset_counts, smi):
         f"FLOP/s) on {smi}: {json.dumps(res['measure_prefill'])}")
     del base
     return counts, res
+
+
+# phase moe: Mixtral 8x7B at full width, as deep as the card holds with
+# MOE_FREE_GIB free for the prefill workspace
+MOE_FREE_GIB = 6.0
+
+
+def moe_depth(torch, cfg, engine_cfg) -> int:
+    """The deepest depth, at most cfg.num_layers, whose bf16 weights (the
+    router float32) and page pool leave MOE_FREE_GIB of the card free."""
+    free, total = torch.cuda.mem_get_info()
+    h, v, n_exp = cfg.hidden_size, cfg.vocab_size, cfg.num_experts
+    fixed = (2 * v * h + h) * 2                 # embed, lm_head, final norm
+    layer = ((cfg.num_params() - 2 * v * h - h) // cfg.num_layers * 2
+             + h * n_exp * 2 + 2 * h * 2)       # router and scales in f32
+    pool = (engine_cfg["num_pages"] * cfg.num_kv_heads
+            * engine_cfg["page_size"] * 2 * cfg.head_dim_ * 2)
+    depth = min(cfg.num_layers,
+                int((free - MOE_FREE_GIB * 2**30 - fixed) // (layer + pool)))
+    log(f"moe: mem_get_info free {free / 2**30:.2f} GiB of "
+        f"{total / 2**30:.2f}; a layer holds {layer / 2**30:.3f} GiB of "
+        f"weights and {pool / 2**30:.3f} GiB of pages, embedding and head "
+        f"{fixed / 2**30:.3f} GiB: depth {depth} of {cfg.num_layers} leaves "
+        f"at least {MOE_FREE_GIB} GiB free")
+    assert depth >= 1, "no MoE layer fits the card"
+    return depth
+
+
+def moe_drop_share(torch, engine, requests):
+    """Serve `requests` with a forward hook on every MoE layer that repeats
+    its routing with the plain moe_route and counts the real (token,
+    choice) assignments past their expert's capacity, apart for
+    prefill-shaped forwards (prefill, verify) and decode. A token is real
+    where the dispatch's position is below its row's total (idle slots,
+    padding rows and columns are routed too, and take capacity, but are
+    not counted, apart from the capacity they keep). Returns {kind:
+    [real assignments dropped, real assignments, other assignments kept]}
+    and {kind: each expert's share of the real choices, before the
+    drop}."""
+    from ray_tpu_torch.models.llama import moe_capacity, moe_route
+
+    cfg = engine.model_cfg
+    real = {}
+    seams = {name: getattr(engine, name) for name in
+             ("_compute_prefill", "_compute_verify", "_compute_decode")}
+
+    def prefill(rb, cp, bt, total, ids, positions, *rest):
+        real["mask"] = positions < total[:, None]
+        return seams["_compute_prefill"](rb, cp, bt, total, ids, positions,
+                                         *rest)
+
+    def verify(bt, total, ids, positions):
+        real["mask"] = positions < total[:, None]
+        return seams["_compute_verify"](bt, total, ids, positions)
+
+    def decode(k_steps, bt, total, *rest):
+        real["mask"] = (total > 0)[:, None]
+        return seams["_compute_decode"](k_steps, bt, total, *rest)
+
+    # [real assignments dropped, real assignments, padding and idle-slot
+    # assignments kept (the capacity they take from real tokens)]
+    counts = {"prefill": [0, 0, 0], "decode": [0, 0, 0]}
+    # choices each expert received among real tokens, before the drop
+    load = {kind: torch.zeros(cfg.num_experts, dtype=torch.long)
+            for kind in counts}
+
+    def hook(mod, args, out):
+        x = args[0]
+        b, s, h = x.shape
+        n = b * s
+        g = min(cfg.moe_group_size, n)
+        rows = torch.cat([x.reshape(n, h), x.new_zeros(((-n) % g, h))])
+        _, _, idx, slot = moe_route(rows.view(-1, g, h), mod.router,
+                                    cfg.num_experts_per_tok)
+        mask = torch.from_numpy(real["mask"]).to(x.device).reshape(n)
+        over = (slot.reshape(-1, cfg.num_experts_per_tok)[:n]
+                >= moe_capacity(cfg, g))
+        past = over[mask]
+        kind = "decode" if s == 1 else "prefill"
+        counts[kind][0] += int(past.sum())
+        counts[kind][1] += past.numel()
+        counts[kind][2] += int((~over[~mask]).sum())
+        chosen = idx.reshape(-1, cfg.num_experts_per_tok)[:n][mask]
+        load[kind] += torch.bincount(chosen.flatten().cpu(),
+                                     minlength=cfg.num_experts)
+
+    engine._compute_prefill, engine._compute_verify, \
+        engine._compute_decode = prefill, verify, decode
+    hooks = [layer.moe.register_forward_hook(hook)
+             for layer in engine.model.layers]
+    try:
+        serve(engine, requests, [])
+    finally:
+        for handle in hooks:
+            handle.remove()
+        for name, fn in seams.items():
+            setattr(engine, name, fn)
+    return counts, {kind: (c / c.sum().clamp(min=1)).tolist()
+                    for kind, c in load.items()}
+
+
+def run_moe(torch, reset_counts, smi):
+    """Phase moe: mixtral-8x7b at full width (bf16, seeded weights made on
+    the card) as deep as the card holds, through phase 4's engine
+    settings and traffic, a profiled steady-decode window and prefill
+    wave (MoE time apart), the capacity drop share, and
+    measure_prefill(2048) beside a rate counted from active FLOPs."""
+    from ray_tpu_torch.models.config import get_config
+    from ray_tpu_torch.models.llama import moe_capacity
+    from ray_tpu_torch.ops.flash_attention import flash_attention
+    from ray_tpu_torch.ops.paged_attention import paged_attention_decode
+    from ray_tpu_torch.serve.llm import SamplingParams as SP
+
+    cfg = get_config("mixtral-8x7b")
+    depth = moe_depth(torch, cfg, ENGINE_8B)
+    engine, eng = run_engine(torch, reset_counts, model="mixtral-8x7b",
+                             model_overrides={"num_layers": depth})
+    counts = {"paged_decode": paged_attention_decode.launches,
+              "flash_fwd_self": flash_attention.launches
+              - flash_attention.segment_launches,
+              "flash_fwd_ctx": flash_attention.segment_launches}
+    torch.cuda.empty_cache()
+    free, _ = torch.cuda.mem_get_info()
+    cfg = engine.model_cfg
+    eng.update(depth=depth, free_gib_after_build=free / 2**30,
+               params=cfg.num_params(), active_params=cfg.active_params())
+    log(f"moe: {depth} layers, {cfg.num_params() / 1e9:.3f} B params "
+        f"({cfg.active_params() / 1e9:.3f} B active a token); free after "
+        f"the build and the traffic {free / 2**30:.2f} GiB")
+    log(f"moe: TTFT ms {json.dumps(eng['ttft_ms'])}")
+    log(f"moe: decode {eng['decode_tok_s']:.1f} tok/s over "
+        f"{eng['wall_s']:.2f} s wall; stats {json.dumps(eng['stats'])}")
+    log(f"moe: kernel launches {json.dumps(counts)}")
+    for kname, c in counts.items():
+        assert c > 0, f"{kname} was never launched in phase moe"
+
+    with annotate_moe():
+        eng["steady"] = profile_decode(torch, engine)
+        eng["prefill_wave"] = profile_prefill(torch, engine)
+    # decode's group of 8 tokens reaches every expert: each forward reads
+    # every weight once at least
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in engine.model.parameters())
+    k_steps = ENGINE_8B["decode_steps_per_dispatch"]
+    eng["steady"]["bound_ms"] = k_steps * weight_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"moe steady decode: {eng['steady']['step_ms']:.1f} ms per "
+        f"K={k_steps} step against a bound of "
+        f"{eng['steady']['bound_ms']:.1f} ms "
+        f"({k_steps} forwards reading {weight_bytes / 1e9:.1f} GB of weights "
+        f"at {HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
+
+    rng = np.random.default_rng(12)
+    requests = [(f"d{n}", [int(t) for t in rng.integers(0, cfg.vocab_size,
+                                                        n)],
+                 SP(max_tokens=32))
+                for n in (20, 97, 180, 320, 410, 512, 700, 1000)]
+    drops, load = moe_drop_share(torch, engine, requests)
+    eng["dropped"] = {kind: {"dropped": d, "assignments": a,
+                             "share": d / max(a, 1),
+                             "padding_kept": pad,
+                             "expert_load": load[kind]}
+                      for kind, (d, a, pad) in drops.items()}
+    log(f"moe: real (token, choice) assignments past capacity (8 requests "
+        f"of 20 to 1000 prompt tokens, 32 new; decode capacity "
+        f"{moe_capacity(cfg, ENGINE_8B['max_batch'])} per expert at "
+        f"{ENGINE_8B['max_batch']} slots, prefill "
+        f"{moe_capacity(cfg, cfg.moe_group_size)} per group of "
+        f"{cfg.moe_group_size}): {json.dumps(eng['dropped'])}")
+
+    mp = engine.measure_prefill(seq_len=2048, peak_flops=BF16_FLOPS)
+    rows = mp["rows"] * mp["seq_len"]
+    g = min(cfg.moe_group_size, rows)
+    n_exp, k = cfg.num_experts, cfg.num_experts_per_tok
+    slack = n_exp * moe_capacity(cfg, g) / (k * g)
+    expert = cfg.num_layers * k * 3 * cfg.hidden_size * cfg.intermediate_size
+    per_tok = (2 * (cfg.active_params() - expert) + 2 * expert * slack
+               + 4 * cfg.num_layers * cfg.num_heads * cfg.head_dim_
+               * mp["seq_len"])
+    active = mp["prefill_tok_s"] * per_tok
+    eng["measure_prefill"] = mp
+    eng["prefill_active"] = {"gflop_per_token": per_tok / 1e9,
+                             "capacity_slack": slack,
+                             "tflops": active / 1e12,
+                             "mfu": active / BF16_FLOPS}
+    log(f"moe measure_prefill (4 x 2048 tokens) on {smi}: "
+        f"{json.dumps(mp)} -- its FLOPs count 2 N over every expert "
+        f"({2 * cfg.num_params() / 1e9:.1f} GFLOP a token)")
+    log(f"moe prefill from active FLOPs: {per_tok / 1e9:.2f} GFLOP a token "
+        f"(2 x {cfg.active_params() / 1e9:.3f} B active params, the expert "
+        f"products x {slack:.3f} capacity slack, attention at S 2048): "
+        f"{active / 1e12:.1f} TFLOP/s, {100 * active / BF16_FLOPS:.1f}% of "
+        f"{BF16_FLOPS / 1e12:.0f} TFLOP/s")
+    del engine
+    return counts, eng
+
+
+def check_moe_reference(torch):
+    """Phase moe_reference: float32, Mixtral width, 2 layers; the kernel
+    path on the card against the plain path on the CPU, same weights:
+    first-prefill logits, the routing decisions behind them, and greedy
+    tokens in the legacy, chunked and speculative engines, each mode's
+    card tokens against the CPU's in the same mode (MoE routes each
+    dispatch shape's token set apart, so the modes may differ from each
+    other)."""
+    from ray_tpu_torch.models.config import get_config
+    from ray_tpu_torch.models.convert import build_model, init_params
+    from ray_tpu_torch.models.llama import PagedCache, moe_route
+    from ray_tpu_torch.serve.llm import EngineConfig, LLMEngine
+    from ray_tpu_torch.serve.llm import SamplingParams as SP
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config("mixtral-8x7b", num_layers=2)
+    k = cfg.num_experts_per_tok
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    sd_gpu = init_params(cfg, gen, "cuda", torch.float32)
+    sd_cpu = {name: t.cpu() for name, t in sd_gpu.items()}
+
+    rng = np.random.default_rng(13)
+    n = 200
+    ids = rng.integers(0, cfg.vocab_size, (1, n))
+    logits, routes = {}, {}
+    for dev, sd in (("cuda", sd_gpu), ("cpu", sd_cpu)):
+        model = build_model(cfg, sd, dev, torch.float32)
+        routes[dev] = []
+
+        def hook(mod, args, out, dev=dev):
+            x = args[0]
+            probs, _, idx, _ = moe_route(x.reshape(1, n, -1), mod.router, k)
+            routes[dev].append((idx.cpu(), probs.cpu()))
+
+        hooks = [layer.moe.register_forward_hook(hook)
+                 for layer in model.layers]
+        pool = torch.zeros((cfg.num_layers, 32, cfg.num_kv_heads, 16,
+                            2 * cfg.head_dim_), device=dev)
+        bt = torch.arange(1, 17, dtype=torch.int32, device=dev)[None]
+        cache = PagedCache(pool, bt, torch.tensor([n], dtype=torch.int32,
+                                                  device=dev))
+        with torch.inference_mode():
+            logits[dev] = model(torch.from_numpy(ids).to(dev),
+                                torch.arange(n, device=dev)[None],
+                                cache).float().cpu()
+        for handle in hooks:
+            handle.remove()
+        del model
+    err = max_err(logits["cuda"], logits["cpu"])
+    flips, margins = 0, []
+    for (idx_g, _), (idx_c, probs_c) in zip(routes["cuda"], routes["cpu"]):
+        differ = idx_g != idx_c
+        flips += int(differ.sum())
+        top = probs_c.sort(dim=-1, descending=True).values
+        gap = (top[..., k - 1] - top[..., k])[differ.any(-1)]
+        margins += [float(m) for m in gap.flatten()]
+    log(f"moe f32 first-prefill logits (2 layers, Mixtral width, {n} "
+        f"tokens): max|kernel path - plain path| = {err:.3e} (atol "
+        f"{ATOL_LOGITS_F32}); routing decisions that differ between the "
+        f"card and the CPU: {flips} of {2 * n * k}"
+        + (f" (CPU probability margins at the k-th choice {margins})"
+           if flips else ""))
+    assert torch.isfinite(logits["cuda"]).all()
+    assert err <= ATOL_LOGITS_F32, "MoE kernel-path logits disagree"
+
+    base = dict(model="mixtral-8x7b", model_overrides={"num_layers": 2},
+                dtype="float32", page_size=16, num_pages=256,
+                max_model_len=1024, max_batch=4, decode_steps_per_dispatch=4,
+                prefill_buckets=(64, 128, 256, 512, 1024))
+    prefix = [int(t) for t in rng.integers(0, cfg.vocab_size, 160)]
+    reqs = [("a", [int(t) for t in rng.integers(0, cfg.vocab_size, 40)]),
+            ("b", prefix + [int(t) for t in rng.integers(0, cfg.vocab_size,
+                                                         30)])]
+    late = [("c", prefix + [int(t) for t in rng.integers(0, cfg.vocab_size,
+                                                         70)])]
+    modes = {"legacy": {}, "chunked": dict(prefill_chunk_tokens=64),
+             "spec": dict(spec_lookahead=4, pipeline_depth=1)}
+    outs, spec = {}, {}
+    for mode, kw in modes.items():
+        for dev, sd in (("cuda", sd_gpu), ("cpu", sd_cpu)):
+            engine = LLMEngine(EngineConfig(**base, **kw, device=dev),
+                               params=sd)
+            if mode == "spec":
+                # both devices draft the card's legacy tokens (a random
+                # 2-layer model repeats no n-gram in 8 tokens)
+                truth = outs["legacy", "cuda"]
+                engine._prompt_lookup_draft = lambda req, m, t=truth: \
+                    t[req.request_id][len(req.output_ids):
+                                      len(req.output_ids) + m]
+            outs[mode, dev], _, _ = serve(
+                engine, [(r, p, SP(max_tokens=8)) for r, p in reqs],
+                [(r, p, SP(max_tokens=8)) for r, p in late])
+            st = engine.stats()
+            assert st["cache_hits"] > 0
+            if mode == "spec":
+                spec[dev] = (st["spec_drafted_total"],
+                             st["spec_accepted_total"])
+                assert st["spec_drafted_total"] > 0, "nothing was drafted"
+            del engine
+    log(f"moe f32 speculative decoding, (drafted, accepted): "
+        f"{json.dumps(spec)}")
+    same = {}
+    for mode in modes:
+        same[mode] = outs[mode, "cuda"] == outs[mode, "cpu"]
+        log(f"moe f32 greedy tokens, {mode}: card {outs[mode, 'cuda']}, "
+            f"CPU {outs[mode, 'cpu']}; identical {same[mode]}")
+    for mode in modes:
+        assert same[mode], f"MoE greedy tokens differ: {mode}"
+    return {"logits_max_abs_err": err, "routing_flips": flips,
+            "flip_margins": margins, "spec_drafted_accepted": spec,
+            "modes_equal_legacy": {m: outs[m, "cuda"] == outs["legacy",
+                                                              "cuda"]
+                                   for m in modes}}
+
+
+def run_moe_trainer(torch, reset_counts):
+    """Phase moe_trainer: ShardedTrainer at Mixtral width with 2 layers
+    (float32 params, bf16 compute, remat "nothing", fused loss, AdamW with
+    clip 1.0), 4 steps on one batch of 2 x 2048 tokens (two routing
+    groups)."""
+    from ray_tpu_torch.models.config import get_config
+    from ray_tpu_torch.models.llama import LlamaModel
+    from ray_tpu_torch.ops.flash_attention import flash_attention
+    from ray_tpu_torch.parallel.train_lib import (ShardedTrainer,
+                                                  default_optimizer)
+
+    cfg = get_config("mixtral-8x7b", num_layers=2)
+    b, s, steps = 2, 2048, 4
+    t0 = time.perf_counter()
+    with torch.device("meta"):
+        model = LlamaModel(cfg)
+    trainer = ShardedTrainer(model, optimizer=default_optimizer(warmup=1))
+    rng = np.random.default_rng(14)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s),
+                                        dtype=np.int32)).cuda()
+    batch = {"input_ids": ids}
+    state = trainer.init(torch.Generator(device="cuda").manual_seed(14),
+                         batch)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in state.params.values())
+    log(f"moe trainer built (Mixtral width, {cfg.num_layers} layers, "
+        f"{cfg.num_experts} experts, top {cfg.num_experts_per_tok}, "
+        f"{n_params / 1e9:.3f} B params in {model.param_dtype}, compute "
+        f"{model.dtype}, remat {cfg.remat_policy}) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()  # the main path's run starts here
+    losses, gnorms, step_ms = [], [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = trainer.step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+    launches = {"flash_fwd_train": flash_attention.launches,
+                "flash_bwd_dq": flash_attention.dq_launches,
+                "flash_bwd_dkv": flash_attention.dkv_launches}
+    peak = torch.cuda.max_memory_allocated()
+    targets = torch.cat([ids[:, 1:], ids[:, :1]], dim=1)
+    with torch.no_grad():
+        _, aux = model(ids, targets=targets, return_aux=True)
+    aux = float(aux)
+    bound = 0.99 * cfg.router_aux_loss_coef * cfg.num_layers
+    log(f"moe train: losses {losses}; grad norms {gnorms}")
+    log(f"moe train: step ms {[round(t, 2) for t in step_ms]}; kernel "
+        f"launches in {steps} steps {json.dumps(launches)}")
+    log(f"moe train: router terms after the steps {aux:.6f} (at least "
+        f"0.99 x coef {cfg.router_aux_loss_coef} x {cfg.num_layers} layers "
+        f"= {bound:.6f})")
+    assert all(math.isfinite(x) for x in losses + gnorms), "non-finite loss"
+    assert losses[-1] < losses[0], "the MoE loss did not fall"
+    assert aux >= bound, "router terms below their bound"
+    want = {"flash_fwd_train": 2 * cfg.num_layers * steps,  # + remat
+            "flash_bwd_dq": cfg.num_layers * steps,
+            "flash_bwd_dkv": cfg.num_layers * steps}
+    assert launches == want, f"launches {launches}, expected {want}"
+
+    step = sorted(step_ms[1:])[len(step_ms[1:]) // 2] / 1e3  # median, warm
+    tokens = b * s
+    live = b * cfg.num_heads * s * (s + 1) // 2
+    attn = 2 * 2 * cfg.head_dim_ * live * cfg.num_layers
+    active_flops = 6 * cfg.active_params() * tokens + 3 * attn
+    out = {"layers": cfg.num_layers, "params": n_params,
+           "batch": [b, s], "losses": losses, "grad_norms": gnorms,
+           "router_terms": aux, "step_ms": step_ms,
+           "ms_per_step": step * 1e3, "tokens_per_s": tokens / step,
+           "active_tflops_per_step": active_flops / 1e12,
+           "mfu_active": active_flops / step / BF16_FLOPS,
+           "peak_memory_gib": peak / 2**30, "launches": launches}
+    log(f"moe train: {out['ms_per_step']:.1f} ms per step (median of steps "
+        f"2-{steps}), {out['tokens_per_s']:.0f} tokens/s, active FLOPs "
+        f"(6 x {cfg.active_params() / 1e9:.3f} B active params a token, "
+        f"plus attention) {out['active_tflops_per_step']:.1f} TFLOP a step "
+        f"= {100 * out['mfu_active']:.1f}% of {BF16_FLOPS / 1e12:.0f} "
+        f"TFLOP/s; peak memory {out['peak_memory_gib']:.2f} GiB")
+    del trainer, model, state, m
+    return out
 
 
 def check_reference(torch):
@@ -1530,6 +2033,19 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # 4c. mixtral-8x7b through the engine, its launches added likewise
+    moe_counts, moe = run_phase("moe", DEADLINES_S["moe"], run_moe, torch,
+                                flush_counts, smi)
+    for kname, c in moe_counts.items():
+        counts[kname] += c
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe["reference"] = run_phase("moe_reference",
+                                 DEADLINES_S["moe_reference"],
+                                 check_moe_reference, torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # 5. reference check
     logits_err = run_phase("reference", DEADLINES_S["reference"],
                            check_reference, torch)
@@ -1550,6 +2066,15 @@ def main() -> int:
     train = run_phase("trainer", DEADLINES_S["trainer"], run_trainer, torch,
                       reset_train_counts)
     counts.update(train.pop("launches"))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 7b. the training path with experts, its launches added to phase 7's
+    moe["train"] = run_phase("moe_trainer", DEADLINES_S["moe_trainer"],
+                             run_moe_trainer, torch, reset_train_counts)
+    for kname, c in moe["train"].pop("launches").items():
+        counts[kname] += c
+    gc.collect()
     torch.cuda.empty_cache()
 
     # 8. one float32 step, card against CPU
@@ -1586,7 +2111,7 @@ def main() -> int:
                    "wall_s": eng["wall_s"], "steady": eng["steady"],
                    "prefill_wave": eng["prefill_wave"],
                    "f32_logits_max_abs_err": logits_err},
-        "engine_v2": engine_v2, "train": train, "card": smi}
+        "engine_v2": engine_v2, "moe": moe, "train": train, "card": smi}
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

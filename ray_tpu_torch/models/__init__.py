@@ -3,9 +3,10 @@
 from .config import CONFIGS, LlamaConfig, get_config, torch_dtype
 from .convert import build_model, init_params, load_params, params_from_flax
 from .llama import (Attention, DecoderLayer, Dense, LlamaModel, MLP,
-                    PagedCache, RMSNorm, rope)
+                    MoEMLP, PagedCache, RMSNorm, rope)
 
 __all__ = ["Attention", "CONFIGS", "DecoderLayer", "Dense", "LlamaConfig",
-           "LlamaModel", "MLP", "PagedCache", "RMSNorm", "build_model",
+           "LlamaModel", "MLP", "MoEMLP", "PagedCache", "RMSNorm",
+           "build_model",
            "get_config", "init_params", "load_params", "params_from_flax",
            "rope", "torch_dtype"]

@@ -4,8 +4,7 @@ package's ``models/llama.py`` (``LlamaConfig`` and ``CONFIGS``).
 Dtypes are strings (``"bfloat16"``, ``"float32"``) or torch dtypes;
 ``torch_dtype`` resolves either form. The training fields (remat and its
 policy, the fused-loss chunk) are read by the training path; the MoE
-fields are kept so that the two registries compare equal entry by entry,
-though MoE layers are not ported yet.
+fields (``num_experts`` and the rest) by ``models.llama.MoEMLP``.
 """
 
 from __future__ import annotations

@@ -5,8 +5,11 @@ form, or the training form with gradients on).
 The Flax tree is the one the JAX package's engine builds
 (``scan_layers=True``): leaves are stacked ``[L, ...]`` under
 ``layers/layer/...``, and ``DenseGeneral`` kernels are ``[in, out]``,
-which transpose into ``nn.Linear.weight`` ``[out, in]``. The tree comes as
-nested dicts of numpy arrays, so no JAX is needed here.
+which transpose into ``nn.Linear.weight`` ``[out, in]``. MoE layers keep
+``moe/{router, experts_gate_up, experts_down}`` in their JAX layouts
+(``[h, E]``, ``[E, h, 2f]``, ``[E, f, h]``), which ``MoEMLP`` reads as
+they are. The tree comes as nested dicts of numpy arrays, so no JAX is
+needed here.
 """
 
 from __future__ import annotations
@@ -28,6 +31,19 @@ _LAYER_LEAVES = {
     ("mlp", "gate_up_proj", "kernel"): ("mlp.gate_up_proj.weight", True),
     ("mlp", "down_proj", "kernel"): ("mlp.down_proj.weight", True),
 }
+# the same for a layer with experts: "moe" in place of "mlp"
+_MOE_LAYER_LEAVES = {
+    **{path: leaf for path, leaf in _LAYER_LEAVES.items()
+       if path[0] != "mlp"},
+    ("moe", "router"): ("moe.router", False),
+    ("moe", "experts_gate_up"): ("moe.experts_gate_up", False),
+    ("moe", "experts_down"): ("moe.experts_down", False),
+}
+
+
+def layer_leaves(cfg: LlamaConfig) -> Dict[tuple, tuple]:
+    """Flax path -> (name, transpose) of one layer's leaves for ``cfg``."""
+    return _MOE_LAYER_LEAVES if cfg.num_experts else _LAYER_LEAVES
 
 
 def _tensor(a) -> torch.Tensor:
@@ -49,7 +65,7 @@ def params_from_flax(tree: Mapping, cfg: LlamaConfig) -> Dict[str, torch.Tensor]
     sd = {"embed": _tensor(tree["embed"]),
           "final_norm.scale": _tensor(tree["final_norm"]["scale"]),
           "lm_head.weight": _tensor(tree["lm_head"]["kernel"]).T.contiguous()}
-    for path, (name, transpose) in _LAYER_LEAVES.items():
+    for path, (name, transpose) in layer_leaves(cfg).items():
         stacked = _tensor(_leaf(layers, path))
         if stacked.shape[0] != cfg.num_layers:
             raise ValueError(f"{'/'.join(path)} stacks {stacked.shape[0]} "
@@ -64,17 +80,24 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator, device,
                 param_dtype) -> Dict[str, torch.Tensor]:
     """Seeded random parameters made directly on ``device`` and stored in
     ``param_dtype``, with the Flax init's distributions: normal(0.02) for
-    the embedding, lecun normal (normal truncated at two standard
-    deviations, std sqrt(1/fan_in) before the truncation correction) for
-    every projection, ones for the norm scales (float32)."""
+    the embedding and (float32) the MoE router, lecun normal (normal
+    truncated at two standard deviations, std sqrt(1/fan_in) before the
+    truncation correction) for every projection, ones for the norm scales
+    (float32). An expert kernel's fan-in is Flax's for a 3-D kernel, whose
+    leading expert axis counts as receptive field: E * h for
+    ``experts_gate_up`` [E, h, 2f], E * f for ``experts_down`` [E, f, h]."""
     dtype = torch_dtype(param_dtype)
     h, f, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
     hd, nq, nkv = cfg.head_dim_, cfg.num_heads, cfg.num_kv_heads
 
-    def lecun(out_f: int, in_f: int) -> torch.Tensor:
+    def lecun(out_f: int, in_f: int, experts: int = 0) -> torch.Tensor:
+        """[out_f, in_f], or with ``experts`` E the stacked [E, in_f,
+        out_f] of an expert kernel."""
+        fan_in = in_f * max(experts, 1)
         # truncated_normal(-2, 2) has std 0.8796...; flax rescales by it
-        std = (1.0 / in_f) ** 0.5 / 0.87962566103423978
-        w = torch.empty((out_f, in_f), dtype=torch.float32, device=device)
+        std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
+        shape = (experts, in_f, out_f) if experts else (out_f, in_f)
+        w = torch.empty(shape, dtype=torch.float32, device=device)
         torch.nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
                                     generator=generator)
         return w.to(dtype)
@@ -91,8 +114,17 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator, device,
         sd[f"layers.{i}.attn.qkv_proj.weight"] = lecun((nq + 2 * nkv) * hd, h)
         sd[f"layers.{i}.attn.o_proj.weight"] = lecun(h, nq * hd)
         sd[f"layers.{i}.mlp_norm.scale"] = ones()
-        sd[f"layers.{i}.mlp.gate_up_proj.weight"] = lecun(2 * f, h)
-        sd[f"layers.{i}.mlp.down_proj.weight"] = lecun(h, f)
+        if cfg.num_experts:
+            n_exp = cfg.num_experts
+            router = torch.empty((h, n_exp), dtype=torch.float32,
+                                 device=device)
+            sd[f"layers.{i}.moe.router"] = router.normal_(
+                0.0, 0.02, generator=generator)
+            sd[f"layers.{i}.moe.experts_gate_up"] = lecun(2 * f, h, n_exp)
+            sd[f"layers.{i}.moe.experts_down"] = lecun(h, f, n_exp)
+        else:
+            sd[f"layers.{i}.mlp.gate_up_proj.weight"] = lecun(2 * f, h)
+            sd[f"layers.{i}.mlp.down_proj.weight"] = lecun(h, f)
     sd["final_norm.scale"] = ones()
     sd["lm_head.weight"] = lecun(v, h)
     return sd
@@ -101,11 +133,11 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator, device,
 def load_params(model: LlamaModel, state_dict: Mapping[str, torch.Tensor],
                 device) -> LlamaModel:
     """Place ``state_dict``'s values into ``model`` (built on any device,
-    the meta device included) on ``device``: norm scales as float32,
-    every other tensor in the model's ``param_dtype``."""
+    the meta device included) on ``device``: norm scales and MoE routers
+    as float32, every other tensor in the model's ``param_dtype``."""
     placed = {}
     for name, t in state_dict.items():
-        want = (torch.float32 if name.endswith(".scale")
+        want = (torch.float32 if name.endswith((".scale", ".router"))
                 else model.param_dtype)
         placed[name] = t.to(device=device, dtype=want)
     model.load_state_dict(placed, strict=True, assign=True)

@@ -14,6 +14,14 @@ attention is causal over the input (optionally segment-masked), through
 ``ops.attention.attention`` with ``cfg.attention_impl`` (flash attention,
 K2-K4, by default).
 
+With ``cfg.num_experts`` each layer's MLP is ``MoEMLP``, the JAX
+package's Mixtral-style sparse FFN: float32 top-k routing over groups of
+``moe_group_size`` tokens, capacity-bounded expert buffers, and the
+router's load-balancing term, which a layer computes and returns beside
+its output only when asked (``forward(..., return_aux=True)`` hands the
+sum over layers to the trainer, the counterpart of asking JAX for the
+sown ``losses`` collection; serving never asks).
+
 Training: with ``cfg.remat`` each layer runs under
 ``torch.utils.checkpoint`` with the JAX policies ("nothing", "names",
 "dots"), and ``forward(..., targets=)`` returns the per-position nll of
@@ -153,6 +161,111 @@ class MLP(nn.Module):
         return self.down_proj(F.silu(gate) * up)
 
 
+def moe_capacity(cfg: LlamaConfig, group: int) -> int:
+    """Slots per expert in a group of ``group`` tokens (the JAX
+    expression, truncation included)."""
+    return max(1, int(cfg.capacity_factor * cfg.num_experts_per_tok
+                      * group / cfg.num_experts))
+
+
+def moe_route(xg: torch.Tensor, router: torch.Tensor, k: int):
+    """Top-k routing of grouped tokens ``xg`` [G, g, h] by the float32
+    ``router`` [h, E]: returns the softmax ``probs`` [G, g, E], the
+    renormalised ``gates`` [G, g, k] (float32), the expert ``idx``
+    [G, g, k] and each assignment's ``slot`` [G, g, k] in its expert's
+    buffer, counted over the group in token order and, within a token, in
+    choice order. Ties go to the lower expert index, as in ``lax.top_k``."""
+    G, g, h = xg.shape
+    n_exp = router.shape[1]
+    logits = (xg.reshape(G * g, h).float() @ router).reshape(G, g, n_exp)
+    probs = torch.softmax(logits, dim=-1)
+    gates, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, idx = gates[..., :k], idx[..., :k]
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    assigns = F.one_hot(idx, n_exp).reshape(G, g * k, n_exp)
+    before = torch.cumsum(assigns, dim=1) - assigns
+    slot = (before * assigns).sum(-1).reshape(G, g, k)
+    return probs, gates, idx, slot
+
+
+class MoEMLP(nn.Module):
+    """Mixtral-style sparse FFN, the JAX ``MoEMLP``: tokens in groups of
+    ``g = min(moe_group_size, T)`` (the tail zero-padded), float32 top-k
+    routing, ``moe_capacity`` slots per expert and group (an assignment
+    past them is dropped: it adds nothing and the residual carries the
+    token), SiLU-gated experts ``[E, h, 2f]`` / ``[E, f, h]`` computed in
+    ``dtype``, outputs combined with the gates rounded to ``dtype``.
+
+    Tokens move by index instead of through JAX's one-hot dispatch
+    tensor: each (expert, slot) holds at most one token, so the expert
+    buffers ``[E, G*C, h]`` are a gather of token rows (empty slots read
+    a zero row) and the combine is a gather of each token's k expert
+    rows. Returns the output and, with ``with_aux`` (else None), the
+    router's load-balancing term, ``coef * E * sum_e frac_tokens_e *
+    frac_probs_e`` over the real tokens, ``frac_tokens`` counting the
+    choices before the capacity drop: like JAX's ``sow``, which records
+    it only when the caller asks for the ``losses`` collection, serving
+    does not compute it."""
+
+    def __init__(self, cfg: LlamaConfig, dtype: torch.dtype,
+                 param_dtype: torch.dtype):
+        super().__init__()
+        self.cfg = cfg
+        self.dtype = dtype
+        n_exp, h, f = cfg.num_experts, cfg.hidden_size, cfg.intermediate_size
+        # float32 whatever param_dtype is (the JAX param's own type)
+        self.router = nn.Parameter(torch.empty(h, n_exp,
+                                               dtype=torch.float32))
+        self.experts_gate_up = nn.Parameter(
+            torch.empty(n_exp, h, 2 * f, dtype=param_dtype))
+        self.experts_down = nn.Parameter(
+            torch.empty(n_exp, f, h, dtype=param_dtype))
+
+    def forward(self, x: torch.Tensor, with_aux: bool = False):
+        cfg, dtype = self.cfg, self.dtype
+        n_exp, k = cfg.num_experts, cfg.num_experts_per_tok
+        b, s, h = x.shape
+        T = b * s
+        g = min(cfg.moe_group_size, T)
+        pad = (-T) % g
+        G = (T + pad) // g
+        cap = moe_capacity(cfg, g)
+        # token rows, the padding, then one zero row that empty slots read
+        rows = torch.cat([x.reshape(T, h).to(dtype),
+                          x.new_zeros((pad + 1, h), dtype=dtype)])
+        probs, gates, idx, slot = moe_route(rows[:-1].view(G, g, h),
+                                            self.router, k)
+        n_rows = n_exp * G * cap
+        group = torch.arange(G, device=x.device)[:, None, None]
+        # each assignment's row in the [E, G, C] buffers; dropped ones
+        # point at a spare row past the end
+        dest = torch.where(slot < cap, (idx * G + group) * cap + slot,
+                           n_rows).reshape(G * g * k)
+        token = torch.arange(G * g * k, device=x.device) // k
+        src = torch.full((n_rows + 1,), G * g, dtype=torch.long,
+                         device=x.device)
+        src.scatter_(0, dest, token)
+        ex_in = rows[src[:n_rows]].view(n_exp, G * cap, h)
+        gate_p, up_p = torch.bmm(
+            ex_in, self.experts_gate_up.to(dtype)).chunk(2, dim=-1)
+        ex_out = torch.bmm(F.silu(gate_p) * up_p,
+                           self.experts_down.to(dtype))
+        ex_out = torch.cat([ex_out.reshape(n_rows, h),
+                            ex_out.new_zeros((1, h))])
+        picked = ex_out[dest].view(G * g, k, h)[:T]
+        weight = gates.to(dtype).reshape(G * g, k, 1)[:T]
+        out = (picked.float() * weight.float()).sum(1).to(dtype)
+        if not with_aux:
+            return out.view(b, s, h), None
+
+        counts = F.one_hot(idx.reshape(G * g, k)[:T], n_exp).sum((0, 1))
+        frac_tokens = counts.float() / (T * k)
+        frac_probs = probs.reshape(G * g, n_exp)[:T].mean(0)
+        aux = cfg.router_aux_loss_coef * n_exp * torch.sum(
+            frac_tokens * frac_probs)
+        return out.view(b, s, h), aux
+
+
 class DecoderLayer(nn.Module):
     def __init__(self, cfg: LlamaConfig, dtype: torch.dtype,
                  param_dtype: torch.dtype):
@@ -160,7 +273,12 @@ class DecoderLayer(nn.Module):
         self.attn_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, dtype)
         self.attn = Attention(cfg, dtype, param_dtype)
         self.mlp_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, dtype)
-        self.mlp = MLP(cfg, dtype, param_dtype)
+        self.cfg = cfg
+        # the JAX layer's names: "moe" with experts, else "mlp"
+        if cfg.num_experts:
+            self.moe = MoEMLP(cfg, dtype, param_dtype)
+        else:
+            self.mlp = MLP(cfg, dtype, param_dtype)
 
     def attn_block(self, x, positions, cache=None, layer: int = 0,
                    segment_ids=None):
@@ -168,14 +286,19 @@ class DecoderLayer(nn.Module):
         return self.attn(self.attn_norm(x), positions, cache, layer,
                          segment_ids)
 
-    def mlp_block(self, x):
-        """The MLP branch, ``mlp_out`` of the JAX layer."""
-        return self.mlp(self.mlp_norm(x))
+    def mlp_block(self, x, with_aux: bool = False):
+        """The MLP branch, ``mlp_out`` of the JAX layer, and its router
+        term (None for a dense MLP or without ``with_aux``)."""
+        if self.cfg.num_experts:
+            return self.moe(self.mlp_norm(x), with_aux)
+        return self.mlp(self.mlp_norm(x)), None
 
     def forward(self, x, positions, cache=None, layer: int = 0,
-                segment_ids=None):
+                segment_ids=None, with_aux: bool = False):
+        """The layer's output and its router term (``mlp_block``)."""
         x = x + self.attn_block(x, positions, cache, layer, segment_ids)
-        return x + self.mlp_block(x)
+        h, aux = self.mlp_block(x, with_aux)
+        return x + h, aux
 
 
 # the projections' matrix products: what jax.checkpoint_policies'
@@ -190,27 +313,31 @@ def _save_dots(ctx, op, *args, **kwargs):
 
 
 def remat_layer(layer: DecoderLayer, policy: str, x, positions,
-                segment_ids=None):
+                segment_ids=None, with_aux: bool = False):
     """One layer under ``torch.utils.checkpoint`` with a JAX remat policy
     (``_remat_policy``): "nothing" saves only the layer's input; "names"
     also keeps ``attn_out`` and ``mlp_out``, by checkpointing the two
     branches apart, so that the input of the MLP branch (x + attn_out) is
     what is kept and neither branch's output is recomputed for the other;
     "dots" saves every projection's matmul output (selective
-    checkpointing)."""
+    checkpointing). Returns the layer's output and its router term: an
+    output of the checkpointed function, so the recompute in the
+    backward neither counts it twice nor loses its graph."""
     if policy == "names":
         x = x + checkpoint(layer.attn_block, x, positions, None, 0,
                            segment_ids, use_reentrant=False)
-        return x + checkpoint(layer.mlp_block, x, use_reentrant=False)
+        h, aux = checkpoint(layer.mlp_block, x, with_aux,
+                            use_reentrant=False)
+        return x + h, aux
     if policy == "dots":
         return checkpoint(layer, x, positions, None, 0, segment_ids,
-                          use_reentrant=False,
+                          with_aux, use_reentrant=False,
                           context_fn=functools.partial(
                               create_selective_checkpoint_contexts,
                               _save_dots))
     if policy == "nothing":
         return checkpoint(layer, x, positions, None, 0, segment_ids,
-                          use_reentrant=False)
+                          with_aux, use_reentrant=False)
     raise ValueError(f"unknown remat policy {policy!r}")
 
 
@@ -231,8 +358,6 @@ class LlamaModel(nn.Module):
 
     def __init__(self, cfg: LlamaConfig, dtype=None, param_dtype=None):
         super().__init__()
-        if cfg.num_experts:
-            raise NotImplementedError("MoE layers are not ported yet")
         self.cfg = cfg
         self.dtype = torch_dtype(dtype if dtype is not None else cfg.dtype)
         self.param_dtype = torch_dtype(param_dtype if param_dtype is not None
@@ -251,8 +376,10 @@ class LlamaModel(nn.Module):
     def hidden(self, input_ids: torch.Tensor,
                positions: Optional[torch.Tensor] = None,
                cache: Optional[PagedCache] = None,
-               segment_ids=None) -> torch.Tensor:
-        """Final-normed hidden states [B, S, H] (before lm_head)."""
+               segment_ids=None, return_aux: bool = False):
+        """Final-normed hidden states [B, S, H] (before lm_head); with
+        ``return_aux`` also the router terms summed over the layers (a
+        float32 scalar, zero for a dense model)."""
         if positions is None:
             positions = torch.arange(input_ids.shape[1],
                                      device=input_ids.device)
@@ -260,28 +387,42 @@ class LlamaModel(nn.Module):
         x = self.embed[input_ids.long()].to(self.dtype)
         remat = (self.cfg.remat and cache is None
                  and torch.is_grad_enabled())
+        aux = []
         for i, layer in enumerate(self.layers):
             if remat:
-                x = remat_layer(layer, self.cfg.remat_policy, x, positions,
-                                segment_ids)
+                x, a = remat_layer(layer, self.cfg.remat_policy, x,
+                                   positions, segment_ids, return_aux)
             else:
-                x = layer(x, positions, cache, i, segment_ids)
-        return self.final_norm(x)
+                x, a = layer(x, positions, cache, i, segment_ids,
+                             return_aux)
+            if a is not None:
+                aux.append(a)
+        x = self.final_norm(x)
+        if not return_aux:
+            return x
+        return x, (torch.stack(aux).sum() if aux
+                   else torch.zeros((), device=x.device))
 
     def forward(self, input_ids: torch.Tensor,
                 positions: Optional[torch.Tensor] = None,
                 cache: Optional[PagedCache] = None, *,
                 segment_ids=None,
-                targets: Optional[torch.Tensor] = None) -> torch.Tensor:
+                targets: Optional[torch.Tensor] = None,
+                return_aux: bool = False):
         """Logits [B, S, V], or with ``targets`` [B, S] the per-position
-        nll [B, S] (float32) of the fused chunked cross-entropy. With a
+        nll [B, S] (float32) of the fused chunked cross-entropy, which
+        stays pure cross-entropy; with ``return_aux`` a pair of that and
+        the router terms summed over the layers (``hidden``). With a
         PagedCache, positions must hold the absolute positions of
         input_ids; the cache's pool is updated in place. segment_ids
         (cache-free path only): None, [B, S], or a (q, kv) pair."""
-        x = self.hidden(input_ids, positions, cache, segment_ids)
-        if targets is None:
-            return self.lm_head(x)
-        return self.fused_nll(x, targets)
+        x = self.hidden(input_ids, positions, cache, segment_ids,
+                        return_aux)
+        if return_aux:
+            x, aux = x
+        out = self.lm_head(x) if targets is None \
+            else self.fused_nll(x, targets)
+        return (out, aux) if return_aux else out
 
     def fused_nll(self, x: torch.Tensor,
                   targets: torch.Tensor) -> torch.Tensor:

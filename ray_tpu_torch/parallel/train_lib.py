@@ -3,7 +3,8 @@
 
 ``ShardedTrainer`` keeps the JAX signature (``init``, ``step``,
 ``eval_loss``) and numerics: the default loss is the next-token
-cross-entropy of the model's fused chunked path, and the default optimizer
+cross-entropy of the model's fused chunked path plus, for a model with
+experts, the router's load-balancing terms, and the default optimizer
 is optax's ``chain(clip_by_global_norm, adamw)`` on a warmup-cosine
 schedule, written out with ``torch._foreach_*`` ops. Only one device is
 taken (``mesh=None``): FSDP/TP on a ``DeviceMesh`` over NCCL is ROADMAP
@@ -184,8 +185,11 @@ class ShardedTrainer:
         mask = batch.get("loss_mask")
         mask = mask[:, 1:] if mask is not None else None
         if getattr(model, "supports_fused_loss", False):
-            nll = model(input_ids, targets=targets)[:, :-1]
-            return masked_mean(nll, mask)
+            # the nll stays pure cross-entropy; the MoE router terms
+            # (summed over layers, zero for a dense model) are added to
+            # the loss, as the JAX trainer adds the sown "losses"
+            nll, aux = model(input_ids, targets=targets, return_aux=True)
+            return masked_mean(nll[:, :-1], mask) + aux
         logits = model(input_ids)[:, :-1]
         return cross_entropy_loss(logits, input_ids[:, 1:], mask)
 

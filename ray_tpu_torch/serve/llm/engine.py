@@ -178,22 +178,13 @@ def _bucket(n: int, buckets) -> int:
     raise ValueError(f"{n} exceeds the largest bucket {buckets[-1]}")
 
 
-def _kv_to_blob(kv: torch.Tensor) -> np.ndarray:
-    """Pages (a CPU tensor) -> the blob's ``kv`` array: float32 as is,
-    bfloat16 as its raw bits in uint16 (numpy has no bfloat16 of its
-    own)."""
-    if kv.dtype == torch.bfloat16:
-        return kv.view(torch.int16).numpy().view(np.uint16)
-    return kv.numpy()
-
-
 def _kv_from_blob(handoff: Dict[str, Any]) -> torch.Tensor:
     """A blob's ``kv`` as a CPU tensor. A JAX bf16 blob (a numpy array of
-    ``ml_dtypes.bfloat16``) and the port's own (uint16 bits with
-    ``"kv_dtype": "bfloat16"``) are reinterpreted bit for bit, without
-    importing ml_dtypes; float32 comes as is."""
+    ``ml_dtypes.bfloat16``) is reinterpreted bit for bit, without
+    importing ml_dtypes; float32 comes as is (the port's bf16 blob holds
+    bf16 values widened, which the pool's cast rounds back exactly)."""
     arr = np.array(handoff["kv"])  # a writable copy (blobs may be views)
-    if arr.dtype.name == "bfloat16" or handoff.get("kv_dtype") == "bfloat16":
+    if arr.dtype.name == "bfloat16":
         return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
     return torch.from_numpy(arr)
 
@@ -1173,15 +1164,18 @@ class LLMEngine:
     def _gather_kv(self, req: Request) -> Dict[str, Any]:
         """The request's pages and generation state as a host blob with
         the JAX engine's keys. ``kv`` is [L, n_pages, Hkv, page, 2*D], the
-        page-major layout both packages share; a bf16 pool's blob carries
-        the raw bits as uint16 plus ``"kv_dtype": "bfloat16"``."""
+        page-major layout both packages share, in float32 (numpy has no
+        bfloat16 of its own): a bf16 pool's values are widened exactly,
+        with ``"kv_dtype": "bfloat16"``, and the JAX engine's cast to its
+        pool's bfloat16 and ``_kv_from_blob``'s both round them back bit
+        for bit."""
         idx = torch.tensor(req.pages, dtype=torch.long, device=self.device)
         kv = self.kv_pages.index_select(1, idx).cpu()
         now = time.monotonic()
         disp = req.dispatched_t if req.dispatched_t is not None \
             else req.arrival_t
         blob = {
-            "kv": _kv_to_blob(kv),
+            "kv": kv.float().numpy(),
             "prompt_ids": list(req.prompt_ids),
             "output_ids": list(req.output_ids),
             # TTFT split: time queued before the prefill dispatch vs

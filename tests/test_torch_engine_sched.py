@@ -556,9 +556,9 @@ def test_handoff_torch_prefill_to_jax_decode(jax_engine, params,
 def test_handoff_jax_bf16_blob_injects_bit_for_bit(jax_handoff):
     """A JAX bf16 blob injects into a bf16 port engine without ml_dtypes:
     the pool's pages equal the blob bit for bit, and the port's own bf16
-    blob carries the same bits as uint16. The blob is the JAX f32 blob
-    with its pages cast by JAX to bfloat16: the numpy array of
-    ml_dtypes.bfloat16 a bf16 JAX engine's blob holds."""
+    blob carries the same values widened exactly to float32. The blob is
+    the JAX f32 blob with its pages cast by JAX to bfloat16: the numpy
+    array of ml_dtypes.bfloat16 a bf16 JAX engine's blob holds."""
     blob = dict(jax_handoff[1]["g2"][1])
     blob["kv"] = np.asarray(jnp.asarray(blob["kv"], jnp.bfloat16))
     assert blob["kv"].dtype.name == "bfloat16"
@@ -569,8 +569,33 @@ def test_handoff_jax_bf16_blob_injects_bit_for_bit(jax_handoff):
     got = engine.kv_pages[:, pages].view(torch.int16).numpy()
     np.testing.assert_array_equal(got, blob["kv"].view(np.int16))
     own = engine.extract_kv("t")
-    assert own["kv_dtype"] == "bfloat16" and own["kv"].dtype == np.uint16
-    np.testing.assert_array_equal(own["kv"].view(np.int16), got)
+    assert own["kv_dtype"] == "bfloat16" and own["kv"].dtype == np.float32
+    np.testing.assert_array_equal(
+        torch.from_numpy(own["kv"]).to(torch.bfloat16).view(torch.int16)
+        .numpy(), got)
+    np.testing.assert_array_equal(own["kv"],
+                                  blob["kv"].astype(np.float32))
+
+
+def test_handoff_torch_bf16_blob_injects_into_jax_bit_for_bit(params):
+    """A bf16 port engine's prefill_only blob injects into a bf16 JAX
+    engine: JAX's cast of the widened values to its pool's bfloat16
+    leaves its pages bit-identical to the port's."""
+    engine = _port(params, dtype="bfloat16")
+    (_, blob), = _prefill_only(engine, {"p": HANDOFF_PROMPT}).values()
+    assert blob["kv_dtype"] == "bfloat16" and blob["kv"].dtype == np.float32
+    sent = torch.from_numpy(blob["kv"]).to(torch.bfloat16)
+    assert torch.equal(sent.float(), torch.from_numpy(blob["kv"]))
+    jax_engine = JaxLLMEngine(JaxEngineConfig(**dict(ENGINE_CFG,
+                                                     dtype="bfloat16")),
+                              params=_flax_tree(params, 2))
+    jax_engine.inject_request("p", blob, JaxSamplingParams(max_tokens=4))
+    assert jax_engine._try_admit_injection([])  # the scatter alone
+    pages = np.asarray(jax_engine.requests["p"].pages)
+    got = np.asarray(jax_engine.kv_pages[:, pages])
+    assert got.dtype.name == "bfloat16"
+    np.testing.assert_array_equal(got.view(np.int16),
+                                  sent.view(torch.int16).numpy())
 
 
 @pytest.mark.parametrize("how", ["ttl", "cap", "abort"])

@@ -206,8 +206,11 @@ def test_trainer_loss_decreases_on_debug_sharded():
 
 
 def test_trainer_refuses_a_mesh_and_moe():
+    """A mesh is refused; an MoE model, once refused, now builds (its
+    parity is tests/test_torch_moe.py's)."""
     with pytest.raises(NotImplementedError, match="item 6"):
         train_lib.ShardedTrainer(torch.nn.Linear(1, 1), mesh=object(),
                                  device="cpu")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        LlamaModel(get_config("tiny-moe"))
+    model = LlamaModel(get_config("tiny-moe"))
+    assert all(hasattr(layer, "moe") and not hasattr(layer, "mlp")
+               for layer in model.layers)
