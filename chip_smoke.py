@@ -71,6 +71,14 @@ every thread's traceback and exit code 1.
    params, bf16 compute, remat "nothing"), 4 steps on 2 x 2048 tokens:
    the loss must fall, the router terms must be at least 0.99 x coef per
    layer, and K2/K3/K4 must have launched as the layers need;
+7c. mesh_trainer: phase 7 again (llama-1b, its seed, batch and
+   optimizer) through the mesh trainer, ShardedTrainer(model,
+   create_mesh(MeshConfig(fsdp=1))) on a world of one rank over NCCL:
+   FSDP2's fully_shard, the tp-local layers at tp=1 and their
+   collectives. Each step's loss and grad norm must be within rtol 1e-4
+   and 1e-3 of phase 7's, the loss must fall and K2/K3/K4 must have
+   launched as the layers need (added to the kernels' launches); ms per
+   step, tokens/s and peak memory beside phase 7's;
 8. train reference: at llama-1b width with 2 layers in float32, one step
    on the card and on the CPU's plain path from the same parameters must
    give the same loss, grad norm and updated parameters.
@@ -122,6 +130,11 @@ ATOL_LOGITS_F32 = 1e-3
 # norm differ by summation order only
 RTOL_LOSS_F32 = 1e-5
 RTOL_GNORM_F32 = 1e-4
+# the mesh trainer at one rank against phase 7 (bf16 compute, 6 steps):
+# the same parameters and batch; the loss's log-sum-exp over the
+# vocabulary is taken in another order, and FSDP copies the gradients
+RTOL_MESH_LOSS = 1e-4
+RTOL_MESH_GNORM = 1e-3
 # Adam's first moment (0.1 x the clipped gradient), per tensor, relative
 # to the tensor's largest entry: sums over 512 tokens in another order
 RTOL_MU_F32 = 1e-4
@@ -140,12 +153,13 @@ NOISY_GRAD = 1e-6
 # (logged by run_phase: build 23.9 s with the earlier tree's kernels,
 # kernels 9.2, engine 33.1, engine_v2 28.8, moe 69.5, moe_reference 39.6,
 # reference 26.1 with its chunked and speculative engines, train_kernels
-# 3.4, trainer 5.7, moe_trainer 1.3, train_reference 5.7; on a slower
-# host build 42.2, kernels 17.4, engine 58.3), and at least 30 s
+# 3.4, trainer 5.7, moe_trainer 1.3, mesh_trainer 5.1 to 14.3 with its
+# NCCL start and a profiled step, train_reference 5.7; on a slower host
+# build 42.2, kernels 17.4, engine 58.3), and at least 30 s
 DEADLINES_S = {"device": 30, "build": 120, "kernels": 60, "engine": 240,
                "engine_v2": 150, "moe": 350, "moe_reference": 200,
                "reference": 150, "train_kernels": 30, "trainer": 45,
-               "moe_trainer": 30, "train_reference": 45}
+               "moe_trainer": 30, "mesh_trainer": 60, "train_reference": 45}
 
 
 def log(msg: str) -> None:
@@ -856,6 +870,110 @@ def run_trainer(torch, reset_counts):
     return out
 
 
+def run_mesh_trainer(torch, reset_counts, ref, smi):
+    """Phase mesh_trainer: phase 7's run (llama-1b, seed 7, 6 steps on 4 x
+    2048 tokens, default_optimizer(warmup=1)) through the mesh trainer on
+    a world of one rank over NCCL, each step held to phase 7's ``ref``."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_tpu_torch.models.config import get_config
+    from ray_tpu_torch.models.llama import LlamaModel
+    from ray_tpu_torch.ops.flash_attention import flash_attention
+    from ray_tpu_torch.parallel.distributed import init_process_group
+    from ray_tpu_torch.parallel.mesh import MeshConfig, create_mesh
+    from ray_tpu_torch.parallel.train_lib import (ShardedTrainer,
+                                                  default_optimizer)
+
+    cfg = get_config("llama-1b")
+    b, s, steps = 4, 2048, 6
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        init_process_group("cuda", rank=0, world_size=1,
+                           store=dist.FileStore(os.path.join(tmp, "store"),
+                                                1), timeout_s=120)
+        try:
+            mesh = create_mesh(MeshConfig(fsdp=1))
+            with torch.device("meta"):
+                model = LlamaModel(cfg)
+            trainer = ShardedTrainer(model, mesh, optimizer=default_optimizer(
+                warmup=1))
+            rng = np.random.default_rng(7)
+            batch = {"input_ids": torch.from_numpy(rng.integers(
+                0, cfg.vocab_size, (b, s), dtype=np.int32)).cuda()}
+            state = trainer.init(torch.Generator(device="cuda").manual_seed(
+                7), batch)
+            torch.cuda.synchronize()
+            log(f"mesh trainer built (world of 1 rank over "
+                f"{dist.get_backend()}, mesh "
+                f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}, FSDP2 over "
+                f"(dp, fsdp)) in {time.perf_counter() - t0:.1f} s")
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()  # this phase's main-path run starts here
+            losses, gnorms, step_ms = [], [], []
+            for _ in range(steps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = trainer.step(state, batch)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                losses.append(float(m["loss"]))
+                gnorms.append(float(m["grad_norm"]))
+            launches = {"flash_fwd_train": flash_attention.launches,
+                        "flash_bwd_dq": flash_attention.dq_launches,
+                        "flash_bwd_dkv": flash_attention.dkv_launches}
+            peak = torch.cuda.max_memory_allocated()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = trainer.step(state, batch)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            del trainer, model, state, m
+        finally:
+            dist.destroy_process_group()
+    prof_out = device_summary(prof, wall)
+    prof_out["host_ops"] = host_summary(prof)
+    loss_err = [abs(a - r) / abs(r) for a, r in zip(losses, ref["losses"])]
+    gn_err = [abs(a - r) / abs(r)
+              for a, r in zip(gnorms, ref["grad_norms"])]
+    step = sorted(step_ms[1:])[len(step_ms[1:]) // 2] / 1e3  # median, warm
+    out = {"losses": losses, "grad_norms": gnorms, "step_ms": step_ms,
+           "ms_per_step": step * 1e3, "tokens_per_s": b * s / step,
+           "peak_memory_gib": peak / 2**30, "loss_rel_err": loss_err,
+           "grad_norm_rel_err": gn_err, "profiled_step": prof_out,
+           "launches": launches}
+    log(f"mesh train: losses {losses}; grad norms {gnorms}")
+    log(f"mesh train: rel err against phase 7, loss max {max(loss_err):.2e} "
+        f"(rtol {RTOL_MESH_LOSS}), grad norm max {max(gn_err):.2e} (rtol "
+        f"{RTOL_MESH_GNORM}); kernel launches in {steps} steps "
+        f"{json.dumps(launches)}")
+    log(f"mesh train on {smi}: {out['ms_per_step']:.1f} ms per step "
+        f"(phase 7: {ref['ms_per_step']:.1f}), {out['tokens_per_s']:.0f} "
+        f"tokens/s (phase 7: {ref['tokens_per_s']:.0f}), peak memory "
+        f"{out['peak_memory_gib']:.2f} GiB (phase 7: "
+        f"{ref['peak_memory_gib']:.2f})")
+    log(f"mesh train: profiled step {prof_out['profiled_wall_ms']:.1f} ms "
+        f"wall, device busy {prof_out['device_busy_ms']:.1f} ms "
+        f"({100 * prof_out['device_busy_share']:.1f}%)")
+    log_kernels(prof_out)
+    for op in prof_out["host_ops"]:
+        log(f"  host {op['ms']:9.3f} ms {op['calls']:6d} calls  {op['name']}")
+    assert all(math.isfinite(x) for x in losses + gnorms), "non-finite loss"
+    assert max(loss_err) <= RTOL_MESH_LOSS, "losses differ from phase 7's"
+    assert max(gn_err) <= RTOL_MESH_GNORM, "grad norms differ from phase 7's"
+    assert losses[-1] < losses[0], "the loss did not fall"
+    want = {"flash_fwd_train": 2 * cfg.num_layers * steps,  # + remat
+            "flash_bwd_dq": cfg.num_layers * steps,
+            "flash_bwd_dkv": cfg.num_layers * steps}
+    assert launches == want, f"launches {launches}, expected {want}"
+    return out
+
+
 def check_train_reference(torch):
     """Phase 8: one float32 training step at llama-1b width with 2 layers,
     the kernel path on the card against the plain path on the CPU, from
@@ -1109,6 +1227,15 @@ def device_summary(prof, wall_s):
             "top_kernels": [{"name": e.key[:60],
                              "ms": e.self_device_time_total / 1e3,
                              "calls": e.count} for e in top]}
+
+
+def host_summary(prof, n: int = 10):
+    """The ops of a torch.profiler window that take the most host time of
+    their own."""
+    events = sorted(prof.key_averages(),
+                    key=lambda e: -e.self_cpu_time_total)[:n]
+    return [{"name": e.key[:60], "ms": e.self_cpu_time_total / 1e3,
+             "calls": e.count} for e in events]
 
 
 # record_function ranges of annotate_moe: on the device they are spans
@@ -2073,6 +2200,15 @@ def main() -> int:
     moe["train"] = run_phase("moe_trainer", DEADLINES_S["moe_trainer"],
                              run_moe_trainer, torch, reset_train_counts)
     for kname, c in moe["train"].pop("launches").items():
+        counts[kname] += c
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 7c. phase 7 through the mesh trainer, its launches added likewise
+    train["mesh"] = run_phase("mesh_trainer", DEADLINES_S["mesh_trainer"],
+                              run_mesh_trainer, torch, reset_train_counts,
+                              train, smi)
+    for kname, c in train["mesh"].pop("launches").items():
         counts[kname] += c
     gc.collect()
     torch.cuda.empty_cache()

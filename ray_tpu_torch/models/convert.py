@@ -19,8 +19,9 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
+from ..parallel.sharding import shard_tensor
 from .config import LlamaConfig, torch_dtype
-from .llama import LlamaModel
+from .llama import LlamaModel, MeshPlace
 
 # Flax path inside layers/layer -> this package's name inside layers.{l}
 _LAYER_LEAVES = {
@@ -77,7 +78,7 @@ def params_from_flax(tree: Mapping, cfg: LlamaConfig) -> Dict[str, torch.Tensor]
 
 
 def init_params(cfg: LlamaConfig, generator: torch.Generator, device,
-                param_dtype) -> Dict[str, torch.Tensor]:
+                param_dtype, mesh=None) -> Dict[str, torch.Tensor]:
     """Seeded random parameters made directly on ``device`` and stored in
     ``param_dtype``, with the Flax init's distributions: normal(0.02) for
     the embedding and (float32) the MoE router, lecun normal (normal
@@ -85,7 +86,21 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator, device,
     truncation correction) for every projection, ones for the norm scales
     (float32). An expert kernel's fan-in is Flax's for a 3-D kernel, whose
     leading expert axis counts as receptive field: E * h for
-    ``experts_gate_up`` [E, h, 2f], E * f for ``experts_down`` [E, f, h]."""
+    ``experts_gate_up`` [E, h, 2f], E * f for ``experts_down`` [E, f, h].
+
+    With ``mesh`` (a ``DeviceMesh``) every rank draws every tensor whole,
+    in the same order from the same seeded ``generator``, and keeps its
+    part (``parallel.sharding.shard_tensor``) before the next is drawn: a
+    mesh run starts from the parameters of a one-device run."""
+    if mesh is None:
+        return dict(_draw_params(cfg, generator, device, param_dtype))
+    place = MeshPlace.of(mesh)
+    return {name: shard_tensor(name, t, cfg, place)
+            for name, t in _draw_params(cfg, generator, device, param_dtype)}
+
+
+def _draw_params(cfg, generator, device, param_dtype):
+    """(name, tensor) of every parameter, drawn in order."""
     dtype = torch_dtype(param_dtype)
     h, f, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
     hd, nq, nkv = cfg.head_dim_, cfg.num_heads, cfg.num_kv_heads
@@ -107,34 +122,36 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator, device,
 
     embed = torch.empty((v, h), dtype=torch.float32, device=device)
     embed.normal_(0.0, 0.02, generator=generator)
-    sd = {"embed": embed.to(dtype)}
+    yield "embed", embed.to(dtype)
     del embed
     for i in range(cfg.num_layers):
-        sd[f"layers.{i}.attn_norm.scale"] = ones()
-        sd[f"layers.{i}.attn.qkv_proj.weight"] = lecun((nq + 2 * nkv) * hd, h)
-        sd[f"layers.{i}.attn.o_proj.weight"] = lecun(h, nq * hd)
-        sd[f"layers.{i}.mlp_norm.scale"] = ones()
+        yield f"layers.{i}.attn_norm.scale", ones()
+        yield f"layers.{i}.attn.qkv_proj.weight", lecun((nq + 2 * nkv) * hd,
+                                                         h)
+        yield f"layers.{i}.attn.o_proj.weight", lecun(h, nq * hd)
+        yield f"layers.{i}.mlp_norm.scale", ones()
         if cfg.num_experts:
             n_exp = cfg.num_experts
             router = torch.empty((h, n_exp), dtype=torch.float32,
                                  device=device)
-            sd[f"layers.{i}.moe.router"] = router.normal_(
+            yield f"layers.{i}.moe.router", router.normal_(
                 0.0, 0.02, generator=generator)
-            sd[f"layers.{i}.moe.experts_gate_up"] = lecun(2 * f, h, n_exp)
-            sd[f"layers.{i}.moe.experts_down"] = lecun(h, f, n_exp)
+            yield f"layers.{i}.moe.experts_gate_up", lecun(2 * f, h, n_exp)
+            yield f"layers.{i}.moe.experts_down", lecun(h, f, n_exp)
         else:
-            sd[f"layers.{i}.mlp.gate_up_proj.weight"] = lecun(2 * f, h)
-            sd[f"layers.{i}.mlp.down_proj.weight"] = lecun(h, f)
-    sd["final_norm.scale"] = ones()
-    sd["lm_head.weight"] = lecun(v, h)
-    return sd
+            yield f"layers.{i}.mlp.gate_up_proj.weight", lecun(2 * f, h)
+            yield f"layers.{i}.mlp.down_proj.weight", lecun(h, f)
+    yield "final_norm.scale", ones()
+    yield "lm_head.weight", lecun(v, h)
 
 
 def load_params(model: LlamaModel, state_dict: Mapping[str, torch.Tensor],
                 device) -> LlamaModel:
     """Place ``state_dict``'s values into ``model`` (built on any device,
     the meta device included) on ``device``: norm scales and MoE routers
-    as float32, every other tensor in the model's ``param_dtype``."""
+    as float32, every other tensor in the model's ``param_dtype``. A model
+    built on a mesh takes the rank's parts (``init_params(..., mesh=)``,
+    ``parallel.sharding.shard_state_dict``)."""
     placed = {}
     for name, t in state_dict.items():
         want = (torch.float32 if name.endswith((".scale", ".router"))

@@ -27,6 +27,16 @@ Training: with ``cfg.remat`` each layer runs under
 "dots"), and ``forward(..., targets=)`` returns the per-position nll of
 the fused chunked cross-entropy instead of logits.
 
+On a mesh (``LlamaModel(..., mesh=)``, a ``DeviceMesh`` with the axes
+of ``parallel/mesh.py``) the layers hold the rank's part of each weight
+(``MeshPlace``): attention Hq/tp and Hkv/tp heads, the MLP F/tp, MoE
+E/ep experts of F/tp each, the embedding and lm_head V/tp rows of the
+vocabulary; the differentiable collectives of ``ops/collectives.py``
+join the parts, and the loss is cross-entropy over the split vocabulary.
+A fused weight keeps its layout on each rank: the rank's q, k and v rows
+(gate and up columns), fused again in that order. Without a mesh nothing
+of this runs.
+
 Parameter names are the state-dict keys ``models/convert.py`` produces
 from a Flax tree, e.g. ``layers.0.attn.qkv_proj.weight``.
 """
@@ -35,7 +45,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Optional
+from typing import Any, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
@@ -44,8 +54,11 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..ops.attention import attention
+from ..ops.collectives import (all_reduce_max, all_reduce_sum, copy_to,
+                               gather_from, reduce_from)
 from ..ops.paged_attention import (paged_attention_decode,
                                    paged_prefill_attention, paged_write)
+from ..parallel.mesh import mesh_sizes, refuse_unported_axes
 from .config import LlamaConfig, torch_dtype
 
 
@@ -92,6 +105,67 @@ class PagedCache:
     ctx_pages: int = 0
 
 
+@dataclasses.dataclass(frozen=True)
+class MeshPlace:
+    """A rank's place on a mesh as the layers see it: the sizes of tp, ep
+    and the batch axes (dp x fsdp), the rank's index on tp and ep, and the
+    process groups of those axes (None where only the layout is needed,
+    as in ``parallel/sharding.py``'s pure functions)."""
+
+    tp: int = 1
+    tp_rank: int = 0
+    ep: int = 1
+    ep_rank: int = 0
+    data: int = 1
+    tp_group: Any = None
+    ep_group: Any = None
+    data_groups: Tuple = ()
+
+    @classmethod
+    def of(cls, mesh) -> "MeshPlace":
+        size = mesh_sizes(mesh)
+        return cls(tp=size["tp"], tp_rank=mesh.get_local_rank("tp"),
+                   ep=size["ep"], ep_rank=mesh.get_local_rank("ep"),
+                   data=size["dp"] * size["fsdp"],
+                   tp_group=mesh.get_group("tp"),
+                   ep_group=mesh.get_group("ep"),
+                   data_groups=(mesh.get_group("dp"),
+                                mesh.get_group("fsdp")))
+
+
+def check_mesh(cfg: LlamaConfig, sizes: Mapping[str, int]) -> None:
+    """Refuse a mesh the model cannot be split over: sp or pp above 1
+    (ROADMAP queue 1 item 9), a tp that does not divide the kv heads (a
+    rank holds whole kv heads and the q heads that read them), the MLP's
+    width or the vocabulary, an ep that does not divide the experts."""
+    refuse_unported_axes(sizes)
+    tp, ep = sizes.get("tp", 1), sizes.get("ep", 1)
+    if cfg.num_kv_heads % tp:
+        raise ValueError(
+            f"tp={tp} does not divide num_kv_heads={cfg.num_kv_heads}: each "
+            f"tp rank holds whole kv heads and the q heads that read them")
+    for field in ("intermediate_size", "vocab_size"):
+        if getattr(cfg, field) % tp:
+            raise ValueError(f"tp={tp} does not divide {field}="
+                             f"{getattr(cfg, field)}")
+    if cfg.num_experts and cfg.num_experts % ep:
+        raise ValueError(f"ep={ep} does not divide num_experts="
+                         f"{cfg.num_experts}")
+
+
+def check_moe_groups(cfg: LlamaConfig, tokens: int, data: int) -> None:
+    """On a batch split over ``data`` > 1 ranks, a rank's ``tokens`` must
+    be a multiple of ``moe_group_size``: then its routing groups are the
+    groups one device forms over the global batch, with the same capacity
+    and drops. Any other split routes other groups."""
+    if data > 1 and tokens % cfg.moe_group_size:
+        raise ValueError(
+            f"a rank's {tokens} tokens are not a multiple of moe_group_size="
+            f"{cfg.moe_group_size}: its routing groups would differ from "
+            f"the groups of the global batch over dp x fsdp = {data} ranks "
+            f"(other tokens per group, other capacity and drops)")
+
+
 class Dense(nn.Linear):
     """A bias-free ``nn.Linear`` whose weight is stored in ``param_dtype``
     and cast, with its input, to ``dtype`` at use (Flax ``DenseGeneral``;
@@ -109,21 +183,31 @@ class Dense(nn.Linear):
 
 
 class Attention(nn.Module):
+    """Fused-QKV attention; on a mesh the rank's Hq/tp q heads and the
+    Hkv/tp kv heads they read (column-parallel qkv_proj, row-parallel
+    o_proj)."""
+
     def __init__(self, cfg: LlamaConfig, dtype: torch.dtype,
-                 param_dtype: torch.dtype):
+                 param_dtype: torch.dtype, place: Optional[MeshPlace] = None):
         super().__init__()
         self.cfg = cfg
-        hd, nq, nkv = cfg.head_dim_, cfg.num_heads, cfg.num_kv_heads
-        self.qkv_proj = Dense(cfg.hidden_size, (nq + 2 * nkv) * hd, dtype,
-                              param_dtype)
-        self.o_proj = Dense(nq * hd, cfg.hidden_size, dtype, param_dtype)
+        self.place = place
+        tp = place.tp if place else 1
+        hd = cfg.head_dim_
+        self.nq, self.nkv = cfg.num_heads // tp, cfg.num_kv_heads // tp
+        self.qkv_proj = Dense(cfg.hidden_size, (self.nq + 2 * self.nkv) * hd,
+                              dtype, param_dtype)
+        self.o_proj = Dense(self.nq * hd, cfg.hidden_size, dtype,
+                            param_dtype)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 cache: Optional[PagedCache] = None, layer: int = 0,
                 segment_ids=None) -> torch.Tensor:
-        cfg = self.cfg
-        hd, nq, nkv = cfg.head_dim_, cfg.num_heads, cfg.num_kv_heads
+        cfg, place = self.cfg, self.place
+        hd, nq, nkv = cfg.head_dim_, self.nq, self.nkv
         b, s = x.shape[:2]
+        if place:
+            x = copy_to(x, (place.tp_group,))
         q, k, v = self.qkv_proj(x).split([nq * hd, nkv * hd, nkv * hd],
                                          dim=-1)
         q = rope(q.reshape(b, s, nq, hd), positions, cfg.rope_theta)
@@ -144,21 +228,28 @@ class Attention(nn.Module):
         else:
             out = attention(q, k, v, causal=True, segment_ids=segment_ids,
                             impl=cfg.attention_impl)
-        return self.o_proj(out.reshape(b, s, nq * hd))
+        out = self.o_proj(out.reshape(b, s, nq * hd))
+        return reduce_from(out, (place.tp_group,)) if place else out
 
 
 class MLP(nn.Module):
+    """SiLU-gated MLP; on a mesh the rank's F/tp of the width."""
+
     def __init__(self, cfg: LlamaConfig, dtype: torch.dtype,
-                 param_dtype: torch.dtype):
+                 param_dtype: torch.dtype, place: Optional[MeshPlace] = None):
         super().__init__()
-        self.gate_up_proj = Dense(cfg.hidden_size, 2 * cfg.intermediate_size,
-                                  dtype, param_dtype)
-        self.down_proj = Dense(cfg.intermediate_size, cfg.hidden_size, dtype,
-                               param_dtype)
+        self.place = place
+        f = cfg.intermediate_size // (place.tp if place else 1)
+        self.gate_up_proj = Dense(cfg.hidden_size, 2 * f, dtype, param_dtype)
+        self.down_proj = Dense(f, cfg.hidden_size, dtype, param_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        place = self.place
+        if place:
+            x = copy_to(x, (place.tp_group,))
         gate, up = self.gate_up_proj(x).chunk(2, dim=-1)
-        return self.down_proj(F.silu(gate) * up)
+        out = self.down_proj(F.silu(gate) * up)
+        return reduce_from(out, (place.tp_group,)) if place else out
 
 
 def moe_capacity(cfg: LlamaConfig, group: int) -> int:
@@ -205,36 +296,59 @@ class MoEMLP(nn.Module):
     frac_probs_e`` over the real tokens, ``frac_tokens`` counting the
     choices before the capacity drop: like JAX's ``sow``, which records
     it only when the caller asks for the ``losses`` collection, serving
-    does not compute it."""
+    does not compute it.
+
+    On a mesh every rank routes every token of its batch (the router is
+    whole), and computes the buffers of its E/ep experts with F/tp of
+    their width: the partial products are summed over tp and the experts'
+    outputs gathered over ep before the combine. The router term's token
+    counts and probability sums are summed over the batch axes first, so
+    that it is the term of the global batch."""
 
     def __init__(self, cfg: LlamaConfig, dtype: torch.dtype,
-                 param_dtype: torch.dtype):
+                 param_dtype: torch.dtype, place: Optional[MeshPlace] = None):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
-        n_exp, h, f = cfg.num_experts, cfg.hidden_size, cfg.intermediate_size
+        self.place = place
+        h = cfg.hidden_size
+        n_local = cfg.num_experts // (place.ep if place else 1)
+        f = cfg.intermediate_size // (place.tp if place else 1)
+        # this rank's experts: [first, first + n_local)
+        self.first_expert = place.ep_rank * n_local if place else 0
         # float32 whatever param_dtype is (the JAX param's own type)
-        self.router = nn.Parameter(torch.empty(h, n_exp,
+        self.router = nn.Parameter(torch.empty(h, cfg.num_experts,
                                                dtype=torch.float32))
         self.experts_gate_up = nn.Parameter(
-            torch.empty(n_exp, h, 2 * f, dtype=param_dtype))
+            torch.empty(n_local, h, 2 * f, dtype=param_dtype))
         self.experts_down = nn.Parameter(
-            torch.empty(n_exp, f, h, dtype=param_dtype))
+            torch.empty(n_local, f, h, dtype=param_dtype))
+
+    def route(self, x: torch.Tensor):
+        """The routing of ``x`` [B, S, h]: the token rows in ``dtype``
+        (then the tail's padding and one zero row that empty slots read)
+        and ``moe_route``'s outputs over groups of ``min(moe_group_size,
+        T)``."""
+        cfg, dtype = self.cfg, self.dtype
+        b, s, h = x.shape
+        T = b * s
+        if self.place:
+            check_moe_groups(cfg, T, self.place.data)
+        g = min(cfg.moe_group_size, T)
+        pad = (-T) % g
+        rows = torch.cat([x.reshape(T, h).to(dtype),
+                          x.new_zeros((pad + 1, h), dtype=dtype)])
+        return (rows, *moe_route(rows[:-1].view(-1, g, h), self.router,
+                                 cfg.num_experts_per_tok))
 
     def forward(self, x: torch.Tensor, with_aux: bool = False):
-        cfg, dtype = self.cfg, self.dtype
+        cfg, dtype, place = self.cfg, self.dtype, self.place
         n_exp, k = cfg.num_experts, cfg.num_experts_per_tok
         b, s, h = x.shape
         T = b * s
-        g = min(cfg.moe_group_size, T)
-        pad = (-T) % g
-        G = (T + pad) // g
+        rows, probs, gates, idx, slot = self.route(x)
+        G, g = idx.shape[:2]
         cap = moe_capacity(cfg, g)
-        # token rows, the padding, then one zero row that empty slots read
-        rows = torch.cat([x.reshape(T, h).to(dtype),
-                          x.new_zeros((pad + 1, h), dtype=dtype)])
-        probs, gates, idx, slot = moe_route(rows[:-1].view(G, g, h),
-                                            self.router, k)
         n_rows = n_exp * G * cap
         group = torch.arange(G, device=x.device)[:, None, None]
         # each assignment's row in the [E, G, C] buffers; dropped ones
@@ -245,11 +359,19 @@ class MoEMLP(nn.Module):
         src = torch.full((n_rows + 1,), G * g, dtype=torch.long,
                          device=x.device)
         src.scatter_(0, dest, token)
-        ex_in = rows[src[:n_rows]].view(n_exp, G * cap, h)
+        n_local = self.experts_gate_up.shape[0]
+        lo = self.first_expert * G * cap
+        ex_rows = copy_to(rows, (place.ep_group, place.tp_group)) \
+            if place else rows
+        ex_in = ex_rows[src[lo:lo + n_local * G * cap]].view(
+            n_local, G * cap, h)
         gate_p, up_p = torch.bmm(
             ex_in, self.experts_gate_up.to(dtype)).chunk(2, dim=-1)
         ex_out = torch.bmm(F.silu(gate_p) * up_p,
                            self.experts_down.to(dtype))
+        if place:
+            ex_out = gather_from(reduce_from(ex_out, (place.tp_group,)),
+                                 place.ep_group)
         ex_out = torch.cat([ex_out.reshape(n_rows, h),
                             ex_out.new_zeros((1, h))])
         picked = ex_out[dest].view(G * g, k, h)[:T]
@@ -259,8 +381,17 @@ class MoEMLP(nn.Module):
             return out.view(b, s, h), None
 
         counts = F.one_hot(idx.reshape(G * g, k)[:T], n_exp).sum((0, 1))
+        if place:
+            # the global batch's fractions: counts and probability sums
+            # over every rank of the batch axes
+            counts = all_reduce_sum(counts, place.data_groups)
+            prob_sum = reduce_from(probs.reshape(G * g, n_exp)[:T].sum(0),
+                                   place.data_groups)
+            T = T * place.data
+            frac_probs = prob_sum / T
+        else:
+            frac_probs = probs.reshape(G * g, n_exp)[:T].mean(0)
         frac_tokens = counts.float() / (T * k)
-        frac_probs = probs.reshape(G * g, n_exp)[:T].mean(0)
         aux = cfg.router_aux_loss_coef * n_exp * torch.sum(
             frac_tokens * frac_probs)
         return out.view(b, s, h), aux
@@ -268,17 +399,17 @@ class MoEMLP(nn.Module):
 
 class DecoderLayer(nn.Module):
     def __init__(self, cfg: LlamaConfig, dtype: torch.dtype,
-                 param_dtype: torch.dtype):
+                 param_dtype: torch.dtype, place: Optional[MeshPlace] = None):
         super().__init__()
         self.attn_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, dtype)
-        self.attn = Attention(cfg, dtype, param_dtype)
+        self.attn = Attention(cfg, dtype, param_dtype, place)
         self.mlp_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, dtype)
         self.cfg = cfg
         # the JAX layer's names: "moe" with experts, else "mlp"
         if cfg.num_experts:
-            self.moe = MoEMLP(cfg, dtype, param_dtype)
+            self.moe = MoEMLP(cfg, dtype, param_dtype, place)
         else:
-            self.mlp = MLP(cfg, dtype, param_dtype)
+            self.mlp = MLP(cfg, dtype, param_dtype, place)
 
     def attn_block(self, x, positions, cache=None, layer: int = 0,
                    segment_ids=None):
@@ -294,8 +425,18 @@ class DecoderLayer(nn.Module):
         return self.mlp(self.mlp_norm(x)), None
 
     def forward(self, x, positions, cache=None, layer: int = 0,
-                segment_ids=None, with_aux: bool = False):
-        """The layer's output and its router term (``mlp_block``)."""
+                segment_ids=None, with_aux: bool = False,
+                checkpoint_branches: bool = False):
+        """The layer's output and its router term (``mlp_block``); with
+        ``checkpoint_branches`` each branch runs under its own checkpoint
+        (remat policy "names"), inside the layer's call, where a sharded
+        layer's parameters are gathered."""
+        if checkpoint_branches:
+            x = x + checkpoint(self.attn_block, x, positions, cache, layer,
+                               segment_ids, use_reentrant=False)
+            h, aux = checkpoint(self.mlp_block, x, with_aux,
+                                use_reentrant=False)
+            return x + h, aux
         x = x + self.attn_block(x, positions, cache, layer, segment_ids)
         h, aux = self.mlp_block(x, with_aux)
         return x + h, aux
@@ -322,13 +463,13 @@ def remat_layer(layer: DecoderLayer, policy: str, x, positions,
     "dots" saves every projection's matmul output (selective
     checkpointing). Returns the layer's output and its router term: an
     output of the checkpointed function, so the recompute in the
-    backward neither counts it twice nor loses its graph."""
+    backward neither counts it twice nor loses its graph. Every policy
+    goes through the layer's call, so that a sharded layer (FSDP2's
+    ``fully_shard``) gathers its parameters for the forward and for the
+    recompute."""
     if policy == "names":
-        x = x + checkpoint(layer.attn_block, x, positions, None, 0,
-                           segment_ids, use_reentrant=False)
-        h, aux = checkpoint(layer.mlp_block, x, with_aux,
-                            use_reentrant=False)
-        return x + h, aux
+        return layer(x, positions, None, 0, segment_ids, with_aux,
+                     checkpoint_branches=True)
     if policy == "dots":
         return checkpoint(layer, x, positions, None, 0, segment_ids,
                           with_aux, use_reentrant=False,
@@ -348,30 +489,74 @@ def _chunk_nll(x: torch.Tensor, targets: torch.Tensor,
     return -logp.gather(-1, targets[..., None].long())[..., 0]
 
 
+def _chunk_nll_split(x: torch.Tensor, targets: torch.Tensor,
+                     head: torch.Tensor, first: int,
+                     group) -> torch.Tensor:
+    """``_chunk_nll`` over a vocabulary split on ``group``: ``head`` holds
+    rows ``[first, first + V/tp)``. The log-sum-exp takes the maximum and
+    the sum of exponentials over every rank; the target's logit comes from
+    the rank that holds it. nll = max + log(sum exp(logit - max)) -
+    logit[target], which is ``-log_softmax`` at the target."""
+    logits = F.linear(x, head).float()                  # [B, c, V/tp]
+    top = all_reduce_max(logits.amax(-1, keepdim=True), (group,))
+    sum_exp = reduce_from((logits - top).exp().sum(-1), (group,))
+    local = targets.long() - first
+    mine = (local >= 0) & (local < logits.shape[-1])
+    picked = logits.gather(-1, local.clamp(0, logits.shape[-1] - 1)[..., None])
+    target_logit = reduce_from(torch.where(mine, picked[..., 0], 0.0),
+                               (group,))
+    return top[..., 0] + torch.log(sum_exp) - target_logit
+
+
 class LlamaModel(nn.Module):
     """Decoder-only Llama. ``dtype`` is the compute type (default: the
     config's ``dtype``) and ``param_dtype`` the type weights are stored in
-    (default: the config's ``param_dtype``); norm scales stay float32."""
+    (default: the config's ``param_dtype``); norm scales stay float32.
+    With ``mesh`` (a ``DeviceMesh`` with the axes of ``parallel/mesh.py``)
+    the layers hold this rank's part of the weights (``MeshPlace``); the
+    mesh is refused at construction if the model does not split over it
+    (``check_mesh``). Serving takes no mesh."""
 
     # the trainer feature-detects the fused chunked-CE `targets=` path
     supports_fused_loss = True
 
-    def __init__(self, cfg: LlamaConfig, dtype=None, param_dtype=None):
+    def __init__(self, cfg: LlamaConfig, dtype=None, param_dtype=None,
+                 mesh=None):
         super().__init__()
         self.cfg = cfg
         self.dtype = torch_dtype(dtype if dtype is not None else cfg.dtype)
         self.param_dtype = torch_dtype(param_dtype if param_dtype is not None
                                        else cfg.param_dtype)
-        self.embed = nn.Parameter(torch.empty(cfg.vocab_size,
-                                              cfg.hidden_size,
+        self.mesh = mesh
+        place = None
+        if mesh is not None:
+            check_mesh(cfg, mesh_sizes(mesh))
+            place = MeshPlace.of(mesh)
+        self.place = place
+        vocab = cfg.vocab_size // (place.tp if place else 1)
+        # this rank's rows of the vocabulary: [first_token, + vocab)
+        self.first_token = place.tp_rank * vocab if place else 0
+        self.embed = nn.Parameter(torch.empty(vocab, cfg.hidden_size,
                                               dtype=self.param_dtype))
         self.layers = nn.ModuleList(
-            DecoderLayer(cfg, self.dtype, self.param_dtype)
+            DecoderLayer(cfg, self.dtype, self.param_dtype, place)
             for _ in range(cfg.num_layers))
         self.final_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps,
                                   self.dtype)
-        self.lm_head = Dense(cfg.hidden_size, cfg.vocab_size, self.dtype,
+        self.lm_head = Dense(cfg.hidden_size, vocab, self.dtype,
                              self.param_dtype)
+
+    def _embed(self, input_ids: torch.Tensor) -> torch.Tensor:
+        """The embedding rows of ``input_ids`` in ``param_dtype``; on a
+        mesh each rank looks up the ids it holds, zeros elsewhere, and the
+        rows are summed over tp (one rank's row and zeros: exact)."""
+        if self.place is None:
+            return self.embed[input_ids.long()]
+        local = input_ids.long() - self.first_token
+        mine = (local >= 0) & (local < self.embed.shape[0])
+        rows = self.embed[torch.where(mine, local, 0)]
+        rows = torch.where(mine[..., None], rows, 0.0)
+        return reduce_from(rows, (self.place.tp_group,))
 
     def hidden(self, input_ids: torch.Tensor,
                positions: Optional[torch.Tensor] = None,
@@ -384,7 +569,7 @@ class LlamaModel(nn.Module):
             positions = torch.arange(input_ids.shape[1],
                                      device=input_ids.device)
             positions = positions.expand(input_ids.shape)
-        x = self.embed[input_ids.long()].to(self.dtype)
+        x = self._embed(input_ids).to(self.dtype)
         remat = (self.cfg.remat and cache is None
                  and torch.is_grad_enabled())
         aux = []
@@ -420,8 +605,14 @@ class LlamaModel(nn.Module):
                         return_aux)
         if return_aux:
             x, aux = x
-        out = self.lm_head(x) if targets is None \
-            else self.fused_nll(x, targets)
+        if targets is not None:
+            out = self.fused_nll(x, targets)
+        elif self.place is None:
+            out = self.lm_head(x)
+        else:  # every rank's vocabulary rows, gathered over tp
+            group = self.place.tp_group
+            out = gather_from(self.lm_head(copy_to(x, (group,))), group,
+                              dim=-1)
         return (out, aux) if return_aux else out
 
     def fused_nll(self, x: torch.Tensor,
@@ -430,14 +621,21 @@ class LlamaModel(nn.Module):
         of positions at a time, each under a checkpoint: a chunk's
         [B, chunk, V] float32 logits live only while it is projected,
         reduced and, in the backward, recomputed, so the [B, S, V] logits
-        never exist whole."""
+        never exist whole. On a mesh with tp > 1 each rank projects onto
+        its rows of the vocabulary (``_chunk_nll_split``); every rank runs
+        the same chunks in the same order, so the collectives of the
+        recompute meet. At tp 1 the rank holds the whole vocabulary."""
         head = self.lm_head.weight.to(self.dtype)
         chunk = min(self.cfg.loss_chunk, x.shape[1])
+        fn = _chunk_nll
+        if self.place is not None and self.place.tp > 1:
+            x = copy_to(x, (self.place.tp_group,))
+            fn = functools.partial(_chunk_nll_split, first=self.first_token,
+                                   group=self.place.tp_group)
         nll = []
         for xc, tc in zip(x.split(chunk, dim=1), targets.split(chunk, dim=1)):
             if torch.is_grad_enabled():
-                nll.append(checkpoint(_chunk_nll, xc, tc, head,
-                                      use_reentrant=False))
+                nll.append(checkpoint(fn, xc, tc, head, use_reentrant=False))
             else:
-                nll.append(_chunk_nll(xc, tc, head))
+                nll.append(fn(xc, tc, head))
         return torch.cat(nll, dim=1)

@@ -1,8 +1,19 @@
-"""Training: the single-device counterpart of the JAX package's
-``parallel/train_lib.py``."""
+"""Training and meshes: the counterparts of the JAX package's
+``parallel/`` (``train_lib``, ``mesh``, ``sharding``) and the
+process-group bootstrap (``distributed``).
 
-from .train_lib import (AdamW, ShardedTrainer, TrainState, WarmupCosine,
-                        cross_entropy_loss, default_optimizer, masked_mean)
+The trainer's names are imported on first use, so that the model may
+import ``parallel.mesh`` while the trainer imports the model."""
 
-__all__ = ["AdamW", "ShardedTrainer", "TrainState", "WarmupCosine",
-           "cross_entropy_loss", "default_optimizer", "masked_mean"]
+_TRAIN_LIB = ("AdamW", "ShardedTrainer", "TrainState", "WarmupCosine",
+              "cross_entropy_loss", "default_optimizer", "masked_mean")
+
+__all__ = list(_TRAIN_LIB)
+
+
+def __getattr__(name):
+    if name in _TRAIN_LIB:
+        from . import train_lib
+
+        return getattr(train_lib, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,4 +1,4 @@
-"""The training step on one device: the counterpart of the JAX package's
+"""The training step: the counterpart of the JAX package's
 ``parallel/train_lib.py``.
 
 ``ShardedTrainer`` keeps the JAX signature (``init``, ``step``,
@@ -6,10 +6,20 @@
 cross-entropy of the model's fused chunked path plus, for a model with
 experts, the router's load-balancing terms, and the default optimizer
 is optax's ``chain(clip_by_global_norm, adamw)`` on a warmup-cosine
-schedule, written out with ``torch._foreach_*`` ops. Only one device is
-taken (``mesh=None``): FSDP/TP on a ``DeviceMesh`` over NCCL is ROADMAP
-queue 1 item 6. A step makes no host sync: the schedule is read on the
-host from the step count, and the metrics come back as device tensors.
+schedule, written out with ``torch._foreach_*`` ops. A step makes no
+host sync: the schedule is read on the host from the step count, and the
+metrics come back as device tensors.
+
+Without a mesh the trainer takes one device. On a mesh
+(``parallel.mesh.create_mesh``; one process per rank) the model's layers
+hold the rank's tp and ep parts of the weights (``models/llama.py``), and
+FSDP2's ``fully_shard`` over the ``(dp, fsdp)`` sub-mesh shards each
+``DecoderLayer`` and the root (HSDP when dp > 1: replicated over dp,
+sharded over fsdp). Each rank takes its rows of the global batch; the
+loss it differentiates is chosen so that FSDP's average over
+``(dp, fsdp)`` is the gradient of the global loss. AdamW runs on each
+rank's shards, so the moments cost 1/fsdp a rank; the global norm sums
+each tensor's squares over exactly the axes that split it.
 
 Parameters live in the model, in its ``param_dtype``; the ``TrainState``
 holds them by name, with the optimizer's moments, and a step updates them
@@ -18,15 +28,20 @@ in place (the JAX step donates its input state likewise).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import torch
+from torch.distributed.fsdp import fully_shard
 
 from ..models.convert import init_params, load_params
+from ..ops.collectives import all_reduce_sum
 from ..ops.paged_attention import check_kernel_head_dim
+from .mesh import BATCH_AXES, active_mesh, batch_shard, mesh_sizes
+from .sharding import shard_state_dict, split_dims
 
 
 @dataclass
@@ -98,15 +113,14 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, params: List[torch.Tensor], grads: List[torch.Tensor],
-               state: Dict[str, Any]) -> torch.Tensor:
+               state: Dict[str, Any],
+               g_norm: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Apply one step in place to ``params`` (and ``grads``, which are
         clipped in place); returns the global norm of the gradients before
-        the clip, on the device."""
-        # optax's global_norm, the root of the summed squares. Not
-        # torch.linalg.vector_norm: on the CPU its float32 accumulation
-        # loses digits over tensors of millions of entries; torch.sum's
-        # pairwise one does not
-        g_norm = torch.stack([g.square().sum() for g in grads]).sum().sqrt()
+        the clip, on the device: ``g_norm`` when given (the norm over every
+        rank's shards, for shards of a larger model), else theirs."""
+        if g_norm is None:
+            g_norm = global_norm(grads)
         if self.grad_clip is not None:
             factor = torch.where(g_norm < self.grad_clip,
                                  torch.ones_like(g_norm),
@@ -132,6 +146,18 @@ class AdamW:
         return g_norm
 
 
+def sum_of_squares(tensors: List[torch.Tensor]) -> torch.Tensor:
+    """The sum of every entry's square. Not torch.linalg.vector_norm: on
+    the CPU its float32 accumulation loses digits over tensors of millions
+    of entries; torch.sum's pairwise one does not."""
+    return torch.stack([t.square().sum() for t in tensors]).sum()
+
+
+def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
+    """optax's global_norm, the root of the summed squares."""
+    return sum_of_squares(tensors).sqrt()
+
+
 def default_optimizer(lr: float = 3e-4, weight_decay: float = 0.1,
                       warmup: int = 100, total_steps: int = 10000,
                       grad_clip: float = 1.0) -> AdamW:
@@ -141,27 +167,55 @@ def default_optimizer(lr: float = 3e-4, weight_decay: float = 0.1,
                  grad_clip=grad_clip)
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """The rank's shard of an FSDP2 DTensor (a view: in-place updates land
+    in the parameter), or the tensor itself."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
 class ShardedTrainer:
-    """Holds the model, the optimizer and the loss; one device.
+    """Holds the model, the optimizer and the loss; one device, or a mesh.
 
     Usage (as in the JAX package):
-        trainer = ShardedTrainer(model)
+        trainer = ShardedTrainer(model)                  # one device
+        trainer = ShardedTrainer(model, create_mesh(MeshConfig(...)))
         state = trainer.init(generator, example_batch)
         state, metrics = trainer.step(state, batch)
 
     ``loss_fn(model, batch) -> scalar`` replaces the default loss; a batch
     is a dict of [B, S] arrays or tensors (``input_ids``, optionally
     ``loss_mask``) or the ``input_ids`` alone.
+
+    On a mesh every rank runs the same calls with the same global batch,
+    of which it takes its rows over ``(dp, fsdp)``; ``step`` and
+    ``eval_loss`` return the global loss and grad norm on every rank. The
+    model is rebuilt for the mesh if it was not built on it
+    (``LlamaModel(..., mesh=)``): the trained model is ``trainer.model``.
+    A ``loss_fn`` on a mesh gets the rank's batch and returns, on every
+    rank, the global loss with gradients that FSDP's average over the
+    batch axes turns into the global loss's (as ``_mesh_loss`` does).
+    ``device`` defaults to "cuda", or to the mesh's device.
     """
 
     def __init__(self, model: torch.nn.Module, mesh=None,
                  optimizer: Optional[AdamW] = None,
-                 loss_fn: Optional[Callable] = None, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "ShardedTrainer takes one device (mesh=None); FSDP/TP on a "
-                "DeviceMesh over NCCL is ROADMAP queue 1 item 6")
-        self.device = torch.device(device)
+                 loss_fn: Optional[Callable] = None, device=None):
+        self.mesh = mesh
+        if mesh is None:
+            self.device = torch.device(device or "cuda")
+        else:
+            self.device = torch.device(mesh.device_type)
+            if self.device.type == "cuda":
+                self.device = torch.device("cuda",
+                                           torch.cuda.current_device())
+            if device is not None and torch.device(device).type \
+                    != self.device.type:
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"({mesh.device_type})")
+            if getattr(model, "mesh", None) is not mesh:
+                with torch.device("meta"):
+                    model = type(model)(model.cfg, model.dtype,
+                                        model.param_dtype, mesh=mesh)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "ShardedTrainer device is 'cuda' but no CUDA device is "
@@ -173,7 +227,9 @@ class ShardedTrainer:
                                   decode=False, owner="ShardedTrainer")
         self.model = model
         self.tx = optimizer or default_optimizer()
-        self.loss_fn = loss_fn or self._default_loss
+        self.loss_fn = loss_fn or (self._default_loss if mesh is None
+                                   else self._mesh_loss)
+        self._sharded = False
 
     # -------------------------------------------------------------- loss
     @staticmethod
@@ -193,31 +249,87 @@ class ShardedTrainer:
         logits = model(input_ids)[:, :-1]
         return cross_entropy_loss(logits, input_ids[:, 1:], mask)
 
+    @staticmethod
+    def _mesh_loss(model, batch) -> torch.Tensor:
+        """``_default_loss`` of the global batch, from a rank's rows: the
+        masked mean over every rank's positions (the mask's count summed
+        over the batch axes) plus the router terms, which the layers
+        compute from the global batch's fractions. Its value is the global
+        loss on every rank; its gradient is the rank's share times the
+        number of batch ranks, since FSDP averages over them: the nll's
+        sum over the rank's positions over the global count, and the
+        router terms' dependence on the rank's own tokens."""
+        input_ids = batch["input_ids"]
+        targets = torch.cat([input_ids[:, 1:], input_ids[:, :1]], dim=1)
+        mask = batch.get("loss_mask")
+        nll, aux = model(input_ids, targets=targets, return_aux=True)
+        nll = nll[:, :-1]
+        if mask is None:
+            total = nll.sum()
+            count = torch.full((), nll.numel(), dtype=nll.dtype,
+                               device=nll.device)
+        else:
+            mask = mask[:, 1:].to(nll.dtype)
+            total, count = (nll * mask).sum(), mask.sum()
+        groups = model.place.data_groups
+        count = torch.clamp(all_reduce_sum(count, groups), min=1)
+        loss = all_reduce_sum(total, groups) / count + aux.detach()
+        share = (total / count + aux) * model.place.data
+        return loss + (share - share.detach())
+
     def _batch(self, batch) -> Dict[str, torch.Tensor]:
         if not isinstance(batch, Mapping):
             batch = {"input_ids": batch}
-        return {k: torch.as_tensor(v).to(self.device, non_blocking=True)
-                for k, v in batch.items()}
+        out = {k: torch.as_tensor(v).to(self.device, non_blocking=True)
+               for k, v in batch.items()}
+        if self.mesh is not None:
+            out = {k: batch_shard(self.mesh, v) for k, v in out.items()}
+        return out
 
     # -------------------------------------------------------------- init
     def init(self, generator: Optional[torch.Generator], example_batch,
              params: Optional[Mapping[str, torch.Tensor]] = None
              ) -> TrainState:
         """Seeded parameters (``init_params`` from ``generator``, in the
-        model's ``param_dtype``), or ``params`` when given (a state dict,
-        e.g. ``params_from_flax`` of a JAX tree), placed on the device in
-        train mode with gradients on, and fresh optimizer moments.
-        ``example_batch`` is taken for the JAX signature: nothing here
-        needs its shapes ahead of the first step."""
+        model's ``param_dtype``), or ``params`` when given (a full state
+        dict, e.g. ``params_from_flax`` of a JAX tree), placed on the
+        device in train mode with gradients on, and fresh optimizer
+        moments. ``example_batch`` is taken for the JAX signature: nothing
+        here needs its shapes ahead of the first step.
+
+        On a mesh each rank keeps its part of every tensor
+        (``init_params(..., mesh=)`` or ``shard_state_dict``), then FSDP2
+        shards each layer and the root over ``(dp, fsdp)``; a mesh
+        trainer is initialised once."""
         del example_batch
+        cfg, mesh = self.model.cfg, self.mesh
+        if mesh is not None and self._sharded:
+            raise RuntimeError("a mesh trainer's init runs once: its model "
+                               "is sharded")
         if params is None:
-            params = init_params(self.model.cfg, generator, self.device,
-                                 self.model.param_dtype)
+            params = init_params(cfg, generator, self.device,
+                                 self.model.param_dtype, mesh=mesh)
+        elif mesh is not None:
+            params = shard_state_dict(params, cfg, mesh)
         load_params(self.model, params, self.device)
         self.model.train().requires_grad_(True)
+        if mesh is not None:
+            # a layer's parameters are gathered for its forward and again
+            # for its recompute and backward; over one fsdp rank the shard
+            # is the whole tensor, and freeing it after the forward only
+            # costs the gathers again
+            data_mesh = mesh[BATCH_AXES]
+            reshard = mesh_sizes(mesh)["fsdp"] > 1
+            for layer in self.model.layers:
+                fully_shard(layer, mesh=data_mesh,
+                            reshard_after_forward=reshard)
+            fully_shard(self.model, mesh=data_mesh)
+            self._sharded = True
         named = dict(self.model.named_parameters())
+        with torch.no_grad():
+            local = [_local(p) for p in named.values()]
         return TrainState(step=0, params=named,
-                          opt_state=self.tx.init(list(named.values())))
+                          opt_state=self.tx.init(local))
 
     # -------------------------------------------------------------- step
     def step(self, state: TrainState,
@@ -226,20 +338,50 @@ class ShardedTrainer:
         old state's, updated in place) and {"loss", "grad_norm"} as
         device tensors; ``grad_norm`` is the norm before the clip."""
         batch = self._batch(batch)
+        names = list(state.params)
         params = list(state.params.values())
         for p in params:
             p.grad = None
-        loss = self.loss_fn(self.model, batch)
-        loss.backward()
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in params]
-        g_norm = self.tx.update(params, grads, state.opt_state)
-        for p in params:
+        with self._ambient_mesh():
+            loss = self.loss_fn(self.model, batch)
+            loss.backward()
+        with torch.no_grad():
+            params = [_local(p) for p in params]
+            grads = [_local(p.grad) if p.grad is not None
+                     else torch.zeros_like(lp)
+                     for p, lp in zip(state.params.values(), params)]
+        g_norm = None if self.mesh is None else self._global_norm(names,
+                                                                  grads)
+        g_norm = self.tx.update(params, grads, state.opt_state, g_norm)
+        for p in state.params.values():
             p.grad = None
         return (dataclasses.replace(state, step=state.step + 1),
                 {"loss": loss.detach(), "grad_norm": g_norm})
 
+    @torch.no_grad()
+    def _global_norm(self, names: List[str],
+                     grads: List[torch.Tensor]) -> torch.Tensor:
+        """optax's global_norm over every rank's shards: each tensor's
+        squares summed over its fsdp shards and over the axes the layers
+        split it on (tp, ep); a tensor that tp or ep ranks hold whole is
+        counted once. Equal on every rank."""
+        by_axes: Dict[Tuple[str, ...], List[torch.Tensor]] = {}
+        for name, g in zip(names, grads):
+            by_axes.setdefault(tuple(sorted(split_dims(name))), []).append(g)
+        parts = []
+        for axes in sorted(by_axes):  # the same order on every rank
+            groups = [self.mesh.get_group(a) for a in ("fsdp",) + axes]
+            parts.append(all_reduce_sum(sum_of_squares(by_axes[axes]),
+                                        groups))
+        return torch.stack(parts).sum().sqrt()
+
     def eval_loss(self, state: TrainState, batch) -> torch.Tensor:
         del state  # the parameters live in the model
-        with torch.no_grad():
+        with torch.no_grad(), self._ambient_mesh():
             return self.loss_fn(self.model, self._batch(batch))
+
+    def _ambient_mesh(self):
+        """The mesh as ``current_mesh()`` while the model runs, as the JAX
+        trainer enters ``active_mesh``."""
+        return (contextlib.nullcontext() if self.mesh is None
+                else active_mesh(self.mesh))

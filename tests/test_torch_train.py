@@ -23,8 +23,10 @@ from ray_tpu.parallel import train_lib as jax_train
 from ray_tpu.parallel.mesh import MeshConfig, create_mesh
 from ray_tpu_torch.models.config import get_config
 from ray_tpu_torch.models.convert import build_model, params_from_flax
-from ray_tpu_torch.models.llama import LlamaModel
+from ray_tpu_torch.models.llama import LlamaModel, check_mesh
 from ray_tpu_torch.parallel import train_lib
+from ray_tpu_torch.parallel.mesh import MeshConfig as PortMeshConfig
+from ray_tpu_torch.parallel.mesh import create_mesh as create_port_mesh
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -206,11 +208,15 @@ def test_trainer_loss_decreases_on_debug_sharded():
 
 
 def test_trainer_refuses_a_mesh_and_moe():
-    """A mesh is refused; an MoE model, once refused, now builds (its
-    parity is tests/test_torch_moe.py's)."""
-    with pytest.raises(NotImplementedError, match="item 6"):
-        train_lib.ShardedTrainer(torch.nn.Linear(1, 1), mesh=object(),
-                                 device="cpu")
+    """A mesh with sp > 1 or pp > 1 is refused, naming ROADMAP item 9
+    (ring/Ulysses attention, gpipe), before any process group is needed;
+    the other axes train (tests/test_torch_mesh.py). An MoE model, once
+    refused, now builds (its parity is tests/test_torch_moe.py's)."""
+    for axis in ("sp", "pp"):
+        with pytest.raises(NotImplementedError, match="item 9"):
+            create_port_mesh(PortMeshConfig(**{axis: 2}))
+        with pytest.raises(NotImplementedError, match="item 9"):
+            check_mesh(get_config("tiny"), {axis: 2, "tp": 1})
     model = LlamaModel(get_config("tiny-moe"))
     assert all(hasattr(layer, "moe") and not hasattr(layer, "mlp")
                for layer in model.layers)
