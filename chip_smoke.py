@@ -25,8 +25,17 @@ every thread's traceback and exit code 1.
    (bf16, seeded random weights made on the card) serves 8 requests, one
    of them a prefix-cache hit that takes the cached-prefix (ctx) path; the
    kernels' launch counters must show the path went through them; then
-   a steady decode window with all slots busy, timed and profiled, and
-   one profiled prefill wave;
+   a steady decode window with all slots busy, timed and profiled, one
+   profiled prefill wave, and the greedy tokens of the parity prompts
+   (`entry.parity_prompts()`, 8 tokens each);
+4a. tp_engine: phase 4 again (its model, seed, settings and traffic)
+   through the tensor-parallel engine, LLMEngine(config,
+   mesh=create_mesh(MeshConfig(tp=1, fsdp=1))) on a world of one rank over
+   NCCL: the frames to the followers, the tp-local layers at tp 1 and
+   their collectives. K1 and K2 (self and ctx) must launch on its traffic
+   (added to phase 4's counts), its greedy tokens on the parity prompts
+   must equal phase 4's, and its steady decode (ms per step, tok/s, the
+   frames' count, bytes and host ms per step) is printed beside phase 4's;
 4b. engine_v2: at phase 4's settings, engines built on one set of
    weights: warmup() (shapes and seconds); chunked prefill (256-token
    chunks) against the legacy scheduler while 7 requests decode and a
@@ -155,9 +164,10 @@ NOISY_GRAD = 1e-6
 # reference 26.1 with its chunked and speculative engines, train_kernels
 # 3.4, trainer 5.7, moe_trainer 1.3, mesh_trainer 5.1 to 14.3 with its
 # NCCL start and a profiled step, train_reference 5.7; on a slower host
-# build 42.2, kernels 17.4, engine 58.3), and at least 30 s
+# build 42.2, kernels 17.4, engine 58.3; tp_engine as engine, with an NCCL
+# start), and at least 30 s
 DEADLINES_S = {"device": 30, "build": 120, "kernels": 60, "engine": 240,
-               "engine_v2": 150, "moe": 350, "moe_reference": 200,
+               "tp_engine": 240, "engine_v2": 150, "moe": 350, "moe_reference": 200,
                "reference": 150, "train_kernels": 30, "trainer": 45,
                "moe_trainer": 30, "mesh_trainer": 60, "train_reference": 45}
 
@@ -1086,14 +1096,15 @@ def serve(engine, requests, late):
     return out, ttft, decode_tokens / (t_end - t_first)
 
 
-def run_engine(torch, flush_counts, **config):
+def run_engine(torch, flush_counts, mesh=None, **config):
     """Phase 4: llama3-8b, full width and depth, bf16, 8 requests (and
-    phase moe's traffic: ENGINE_8B with `config` in place)."""
+    phase moe's traffic: ENGINE_8B with `config` in place; tp_engine's: on
+    `mesh`)."""
     from ray_tpu_torch.serve.llm import EngineConfig, LLMEngine
     from ray_tpu_torch.serve.llm import SamplingParams as SP
 
     t0 = time.perf_counter()
-    engine = LLMEngine(EngineConfig(**{**ENGINE_8B, **config}))
+    engine = LLMEngine(EngineConfig(**{**ENGINE_8B, **config}), mesh=mesh)
     torch.cuda.synchronize()
     log(f"engine built ({engine.config.model}, "
         f"{engine.model_cfg.num_layers} layers, "
@@ -1131,6 +1142,103 @@ def run_engine(torch, flush_counts, **config):
                         decode_tok_s=tok_s, wall_s=wall, stats=stats)
 
 
+def greedy_parity(engine) -> dict:
+    """{rid: tokens} of `entry.parity_prompts()`, 8 greedy tokens each."""
+    from ray_tpu_torch.entry import drive, parity_prompts
+
+    return drive(engine, [[(f"g{i}", [int(t) for t in p],
+                            {"max_tokens": 8}, None)
+                           for i, p in enumerate(parity_prompts())]])["tokens"]
+
+
+def collective_host_us(torch, group, calls: int = 264) -> dict:
+    """Host microseconds per call of the tp layers' collectives on a
+    decode step's [8, 1, 4096] bf16 activations over `group`, `calls`
+    calls back to back (one K=4 decode dispatch of llama3-8b makes 264),
+    under inference mode as the engine runs them: `reduce_from`, `copy_to`
+    and a bare `dist.all_reduce` in place."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.ops.collectives import copy_to, reduce_from
+
+    x = torch.randn(8, 1, 4096, device="cuda", dtype=torch.bfloat16)
+    fns = {"reduce_from": lambda: reduce_from(x, (group,)),
+           "copy_to": lambda: copy_to(x, (group,)),
+           "all_reduce": lambda: dist.all_reduce(x, group=group)}
+    out = {}
+    with torch.inference_mode():
+        for name, fn in fns.items():
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            out[name] = (time.perf_counter() - t0) / calls * 1e6
+            torch.cuda.synchronize()
+    return out
+
+
+def run_tp_engine(torch, flush_counts, ref, smi):
+    """Phase tp_engine: phase 4's run through LLMEngine on
+    create_mesh(MeshConfig(tp=1, fsdp=1)) over a world of one rank over
+    NCCL; its greedy parity tokens held to phase 4's ``ref``."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from ray_tpu_torch.ops.flash_attention import flash_attention
+    from ray_tpu_torch.ops.paged_attention import paged_attention_decode
+    from ray_tpu_torch.parallel.distributed import init_process_group
+    from ray_tpu_torch.parallel.mesh import MeshConfig, create_mesh
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        init_process_group("cuda", rank=0, world_size=1,
+                           store=dist.FileStore(os.path.join(tmp, "store"),
+                                                1), timeout_s=120)
+        try:
+            mesh = create_mesh(MeshConfig(tp=1, fsdp=1))
+            log(f"tp engine: world of 1 rank over {dist.get_backend()}, mesh "
+                f"{dict(zip(mesh.mesh_dim_names, mesh.shape))} in "
+                f"{time.perf_counter() - t0:.1f} s")
+            engine, eng = run_engine(torch, flush_counts, mesh=mesh)
+            counts = {"paged_decode": paged_attention_decode.launches,
+                      "flash_fwd_self": flash_attention.launches
+                      - flash_attention.segment_launches,
+                      "flash_fwd_ctx": flash_attention.segment_launches}
+            eng["steady"] = profile_decode(torch, engine)
+            eng["parity_tokens"] = greedy_parity(engine)
+            eng["collective_host_us"] = collective_host_us(
+                torch, engine.model.place.tp_group)
+            frames = engine._frames
+            eng["frames"] = {"frames": frames.frames, "bytes": frames.bytes,
+                             "host_s": frames.seconds}
+            eng["sharding"] = engine.stats()["sharding"]
+            engine.close()
+            del engine
+        finally:
+            dist.destroy_process_group()
+    steady, ref_steady = eng["steady"], ref["steady"]
+    log(f"tp engine: TTFT ms {json.dumps(eng['ttft_ms'])}")
+    log(f"tp engine: kernel launches {json.dumps(counts)}; frames "
+        f"{json.dumps(eng['frames'])}; sharding "
+        f"{json.dumps(eng['sharding'])}")
+    log(f"tp engine on {smi}: steady decode {steady['step_ms']:.2f} ms per "
+        f"step (phase 4: {ref_steady['step_ms']:.2f}), "
+        f"{steady['decode_tok_s']:.1f} tok/s (phase 4: "
+        f"{ref_steady['decode_tok_s']:.1f}); frames per step "
+        f"{steady['frames_per_step']:.2f}, "
+        f"{steady['frame_bytes_per_step']:.0f} B, "
+        f"{steady['frame_ms_per_step']:.3f} ms of host time; host us per "
+        f"one-rank collective call {json.dumps(eng['collective_host_us'])}")
+    log(f"tp engine: parity tokens {json.dumps(eng['parity_tokens'])}")
+    for kname, c in counts.items():
+        assert c > 0, f"{kname} was never launched on the tp engine's path"
+    assert eng["parity_tokens"] == ref["parity_tokens"], \
+        "the tp engine's greedy tokens differ from phase 4's"
+    return counts, eng
+
+
 def profile_decode(torch, engine):
     """Steady decode with all 8 slots busy (300-token prompts): tokens/s
     over 6 unprofiled steps, then 6 steps under torch.profiler for the
@@ -1142,6 +1250,7 @@ def profile_decode(torch, engine):
 
     rng = np.random.default_rng(4)
     vocab = engine.model_cfg.vocab_size
+    frames = getattr(engine, "_frames", None)  # a tp engine's
     rids = [f"w{i}" for i in range(engine.config.max_batch)]
     for rid in rids:
         engine.add_request(rid, [int(t) for t in
@@ -1161,7 +1270,13 @@ def profile_decode(torch, engine):
         torch.cuda.synchronize()
         return toks, time.perf_counter() - t0
 
+    sent = frames and (frames.frames, frames.bytes, frames.seconds)
     toks, dt = window(6)
+    if frames:
+        frame_stats = {"frames_per_step": (frames.frames - sent[0]) / 6,
+                       "frame_bytes_per_step": (frames.bytes - sent[1]) / 6,
+                       "frame_ms_per_step": (frames.seconds - sent[2])
+                       / 6 * 1e3}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         p_toks, p_dt = window(6)
@@ -1184,11 +1299,16 @@ def profile_decode(torch, engine):
         engine.step()
     out = {"decode_tok_s": toks / dt, "step_ms": dt / 6 * 1e3,
            "profiled_tokens": p_toks, **device_summary(prof, p_dt),
+           "host_ops": host_summary(prof, 8),
            "sync_warnings_in_2_steps": len(syncs)}
+    if frames:
+        out.update(frame_stats)
     log(f"steady decode (8 slots, K=4): {out['decode_tok_s']:.1f} tok/s, "
         f"{out['step_ms']:.2f} ms per step; device busy "
         f"{100 * out['device_busy_share']:.1f}% of a profiled window")
     log_kernels(out, moe_summary(prof))
+    for op in out["host_ops"]:
+        log(f"  host {op['ms']:9.3f} ms {op['calls']:6d} calls  {op['name']}")
     log(f"synchronising calls in 2 engine steps: {len(syncs)} "
         f"{sorted(set(syncs))[:3]}")
     assert not syncs, "a dispatch or harvest synchronised the host"
@@ -2146,10 +2266,21 @@ def main() -> int:
             assert c > 0, f"{kname} was never launched on the main path"
         eng["steady"] = profile_decode(torch, engine)
         eng["prefill_wave"] = profile_prefill(torch, engine)
+        eng["parity_tokens"] = greedy_parity(engine)
+        log(f"engine: parity tokens {json.dumps(eng['parity_tokens'])}")
         return counts, eng
 
     counts, eng = run_phase("engine", DEADLINES_S["engine"], engine_phase)
-    gc.collect()  # phase 4's engine goes before engine_v2's are built
+    gc.collect()  # phase 4's engine goes before the next is built
+    torch.cuda.empty_cache()
+
+    # 4a. phase 4 through the tp engine, its launches added to phase 4's
+    tp_counts, tp_eng = run_phase("tp_engine", DEADLINES_S["tp_engine"],
+                                  run_tp_engine, torch, flush_counts, eng,
+                                  smi)
+    for kname, c in tp_counts.items():
+        counts[kname] += c
+    gc.collect()
     torch.cuda.empty_cache()
 
     # 4b. the rest of the engine, its launches added to the main path's
@@ -2246,7 +2377,11 @@ def main() -> int:
                    "decode_tok_s": eng["decode_tok_s"],
                    "wall_s": eng["wall_s"], "steady": eng["steady"],
                    "prefill_wave": eng["prefill_wave"],
-                   "f32_logits_max_abs_err": logits_err},
+                   "f32_logits_max_abs_err": logits_err,
+                   "parity_tokens": eng["parity_tokens"]},
+        "tp_engine": {k: tp_eng[k] for k in (
+            "ttft_ms", "decode_tok_s", "wall_s", "steady", "frames",
+            "sharding", "collective_host_us")},
         "engine_v2": engine_v2, "moe": moe, "train": train, "card": smi}
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """ray_tpu_torch: the PyTorch/CUDA port of ray_tpu's compute, for NVIDIA
 Hopper (H100). It imports torch and never JAX or the ray_tpu package.
-So far it serves Llama models through the paged engine (``serve.llm``) and
-trains them on one device (``parallel.train_lib.ShardedTrainer``).
+It serves Llama and Mixtral-style models through the paged engine
+(``serve.llm``), on one device or a tensor-parallel mesh, and trains them
+(``parallel.train_lib.ShardedTrainer``) on one device or a mesh.
 
 Kernels are hand-written CUDA C++ under ``ops/csrc/``, built with nvcc on
 first use (``ops/_build.py``); importing this package needs neither CUDA

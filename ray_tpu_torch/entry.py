@@ -1,27 +1,47 @@
-"""Multi-rank dry run of the mesh trainer: the counterpart of the JAX
-package's ``dryrun_multichip`` (``__graft_entry__.py``), on gloo CPU
-ranks.
+"""Multi-rank dry run of the mesh trainer and of the tensor-parallel
+engine: the counterpart of the JAX package's ``dryrun_multichip``
+(``__graft_entry__.py``), on gloo CPU ranks.
 
     python -c "from ray_tpu_torch.entry import dryrun_multichip; \
 dryrun_multichip(4)"
 
-``train_on_mesh`` is the body every rank runs: it builds the mesh, the
-model and the ``ShardedTrainer`` and takes a step on each batch. Tests run
-it through ``parallel.distributed.spawn`` against the JAX trainer.
+``train_on_mesh`` and ``serve_on_mesh`` are the bodies every rank runs:
+the first builds the mesh, the model and the ``ShardedTrainer`` and takes
+a step on each batch; the second serves runs of requests through a tp
+engine (rank 0 drives, the others follow). Tests run them through
+``parallel.distributed.spawn`` against the JAX trainer and engine.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Any, Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .models.config import get_config
 from .models.llama import LlamaModel
-from .parallel.mesh import MeshConfig, batch_shard, create_mesh, mesh_sizes
+from .parallel.mesh import (MeshConfig, batch_shard, create_mesh,
+                            mesh_sizes, serve_mesh)
 from .parallel.sharding import gather_state_dict
 from .parallel.train_lib import ShardedTrainer, default_optimizer
+from .serve.llm import EngineConfig, LLMEngine, SamplingParams
+
+# the greedy parity contract of the JAX package's benchmarks/sharded_serve.py
+# (ENGINE_CFG, parity_prompts), kept here: this package imports nothing of
+# the JAX package or of benchmarks/
+PARITY_ENGINE_CFG = dict(model="tiny", page_size=8, num_pages=64,
+                         max_model_len=128, max_batch=4,
+                         prefill_buckets=(16, 32, 64), dtype="float32",
+                         model_overrides={"vocab_size": 512})
+
+
+def parity_prompts() -> List[List[int]]:
+    """The fixed prompt set of the greedy parity contract."""
+    return [list(np.random.default_rng(s).integers(0, 500, n))
+            for s, n in ((0, 13), (1, 9), (2, 21))]
 
 
 def train_on_mesh(model: str, mesh_config: Mapping[str, int],
@@ -98,12 +118,169 @@ def _trace_routing(trainer, mesh, batch) -> Dict[str, Any]:
     return {"router_terms": float(aux), "routing": routing}
 
 
+def serve_on_mesh(runs: Sequence[Mapping[str, Any]],
+                  params: Optional[Mapping[str, np.ndarray]] = None,
+                  device: str = "cpu") -> List[Dict[str, Any]]:
+    """On each rank of an initialised world: each run of ``runs`` in turn
+    through ``LLMEngine`` on ``serve_mesh(world size)``; rank 0 drives it
+    (``drive``) and closes it, the others ``follow()``. A run is a dict:
+    ``engine`` (EngineConfig kwargs), ``seeded`` (a seeded init instead of
+    ``params``, a full state dict of arrays), ``waves``, ``inject``,
+    ``warmup`` and ``measure_prefill`` (as ``drive`` takes them),
+    ``single`` (rank 0 also serves the waves on a one-device engine from
+    the same parameters), ``routing`` (record the first n routings of
+    each MoE layer: its input groups, experts and capacity slots).
+
+    Returns each run's result: on every rank the mesh's sizes, the decode
+    carry, the free pages, the global parameter count and the routing; on
+    rank 0 also ``drive``'s output (and ``single_tokens``). A
+    prefill_only request's blob is kept under its request id for later
+    runs' ``inject``."""
+    mesh = serve_mesh(dist.get_world_size(), device)
+    blobs: Dict[str, Any] = {}
+    results = []
+    for run in runs:
+        cfg = EngineConfig(**run["engine"], device=device)
+        full = None if run.get("seeded") or params is None else {
+            k: torch.from_numpy(np.asarray(v)) for k, v in params.items()}
+        engine = LLMEngine(cfg, params=full, mesh=mesh)
+        routing = _record_routing(engine.model, run.get("routing", 0))
+        out: Dict[str, Any] = {"mesh": mesh_sizes(mesh)}
+        if dist.get_rank() == 0:
+            try:
+                out.update(drive(engine, run.get("waves", ()),
+                                 run.get("inject", ()), blobs,
+                                 warmup=run.get("warmup"),
+                                 measure_prefill=run.get("measure_prefill")))
+            finally:
+                engine.close()
+            if run.get("single"):
+                single = LLMEngine(cfg, params=full)
+                out["single_tokens"] = drive(single, run.get("waves", ()),
+                                             (), {})["tokens"]
+        else:
+            engine.follow()
+        out.update(carry=engine.slot_ids.cpu().numpy(),
+                   free_pages=engine.allocator.num_free(),
+                   param_count=engine.param_count(), routing=routing)
+        results.append(out)
+    return results
+
+
+def drive(engine: LLMEngine, waves=(), inject=(),
+          blobs: Optional[Dict[str, Any]] = None,
+          warmup: Optional[Mapping[str, Any]] = None,
+          measure_prefill: Optional[Mapping[str, Any]] = None,
+          max_steps: int = 2000) -> Dict[str, Any]:
+    """Serve ``waves`` in turn, each a list of (request id, prompt,
+    SamplingParams kwargs, deadline in seconds from now or None), every
+    request of a wave finished before the next is added; ``inject`` are
+    (request id, blob or the id of a blob in ``blobs``, SamplingParams
+    kwargs) queued first. Once a request with a deadline has a token, the
+    host sleeps past the deadline, so that it expires mid-decode.
+    ``warmup`` and ``measure_prefill`` are kwargs of the engine's
+    methods, run first and last (None: not run).
+    Returns each request's tokens and finish reason, the engine's stats
+    and those calls' results; the blobs of prefill_only requests go into
+    ``blobs`` and the output."""
+    blobs = {} if blobs is None else blobs
+    out: Dict[str, Any] = {}
+    if warmup is not None:
+        out["warmup_shapes"] = engine.warmup(**warmup)
+    tokens: Dict[str, List[int]] = {}
+    finish: Dict[str, str] = {}
+    for rid, blob, sp in inject:
+        engine.inject_request(rid, blobs[blob] if isinstance(blob, str)
+                              else blob, SamplingParams(**sp))
+        tokens[rid] = []
+    for wave in [[]] + list(waves):
+        deadlines = {}
+        for rid, prompt, sp, deadline_s in wave:
+            deadline = None if deadline_s is None else time.time() + deadline_s
+            engine.add_request(rid, prompt, SamplingParams(**sp), deadline)
+            tokens[rid] = []
+            if deadline is not None:
+                deadlines[rid] = deadline
+        for _ in range(max_steps):
+            if set(tokens) <= set(finish):
+                break
+            for d in engine.step():
+                tokens[d.request_id].extend(int(t) for t in d.new_token_ids)
+                if d.finished:
+                    finish[d.request_id] = d.finish_reason
+            for rid in [r for r in deadlines if tokens[r]]:
+                time.sleep(max(0.0, deadlines.pop(rid) - time.time()) + 0.01)
+        else:
+            raise RuntimeError(f"unfinished after {max_steps} steps: "
+                               f"{sorted(set(tokens) - set(finish))}")
+    while engine.has_work():
+        engine.step()
+    out_blobs = {rid: engine.pop_extracted(rid)
+                 for rid, why in finish.items() if why == "prefill_done"}
+    blobs.update(out_blobs)
+    if measure_prefill is not None:
+        out["measure_prefill"] = engine.measure_prefill(**measure_prefill)
+    out.update(tokens=tokens, finish=finish, stats=engine.stats(),
+               blobs=out_blobs)
+    return out
+
+
+def _record_routing(model, n: int) -> List[List[Dict[str, np.ndarray]]]:
+    """Per MoE layer, a list that a forward pre-hook fills with the first
+    ``n`` routings: the token groups [G, g, h] and the experts and
+    capacity slots [G, g, k]."""
+    if not n or not model.cfg.num_experts:
+        return []
+    routing: List[List[Dict[str, np.ndarray]]] = []
+    for layer in model.layers:
+        seen: List[Dict[str, np.ndarray]] = []
+        routing.append(seen)
+
+        def record(mod, args, seen=seen):
+            if len(seen) < n:
+                rows, _, _, idx, slot = mod.route(args[0])
+                groups = rows[:-1].view(*idx.shape[:2], rows.shape[-1])
+                seen.append({"groups": groups.float().cpu().numpy(),
+                             "experts": idx.cpu().numpy(),
+                             "slots": slot.cpu().numpy()})
+
+        layer.moe.register_forward_pre_hook(record)
+    return routing
+
+
+def serve_tier_run() -> Dict[str, Any]:
+    """The serve/tp tier's run: ``parity_prompts()`` greedily, 8 tokens
+    each, through PARITY_ENGINE_CFG from a seeded init, on the mesh and on
+    one device (``serve_on_mesh``)."""
+    return {"engine": PARITY_ENGINE_CFG, "seeded": True, "single": True,
+            "waves": [[(f"g{i}", p, {"max_tokens": 8}, None)
+                       for i, p in enumerate(parity_prompts())]]}
+
+
+def serve_tier_line(n_devices: int, out: Mapping[str, Any]) -> str:
+    """The serve/tp tier's line from rank 0's result of
+    ``serve_tier_run``; raises if the mesh's tokens differ from the one
+    device's."""
+    if out["tokens"] != out["single_tokens"]:
+        raise AssertionError(f"tp={out['mesh']['tp']} greedy decode "
+                             f"diverged from one device: {out['tokens']} "
+                             f"!= {out['single_tokens']}")
+    acct = out["stats"]["sharding"]
+    n_toks = sum(len(v) for v in out["tokens"].values())
+    return (f"dryrun_multichip({n_devices}) serve/tp: mesh={out['mesh']} "
+            f"greedy parity ok ({n_toks} tokens, "
+            f"{acct['kv_heads_per_shard']} kv-heads/shard, "
+            f"page {acct['page_bytes_per_shard']}B/shard)")
+
+
 def dryrun_multichip(n_devices: int, timeout_s: float = 300.0) -> None:
     """One training step of the dense tier (debug-sharded on dp x fsdp x
     tp) and of the MoE tier (tiny-moe on dp x fsdp x ep x tp) over
     ``n_devices`` gloo CPU ranks, with the JAX function's mesh arithmetic
-    and sp fixed at 1; prints one line per tier. The JAX function's
-    pipeline, tensor-parallel serving and two-host tiers are not run."""
+    and sp fixed at 1, and the serve/tp tier (greedy decode of the tp=2
+    engine on 2 of the ranks equals one device's, on ``parity_prompts``);
+    prints one line per tier. The JAX function's pipeline and two-host
+    tiers are not run."""
     from .parallel.distributed import spawn
 
     # tp must divide the model's heads and widths (powers of two); any
@@ -150,6 +327,11 @@ def dryrun_multichip(n_devices: int, timeout_s: float = 300.0) -> None:
     assert np.isfinite(moe_loss), f"non-finite MoE loss {moe_loss}"
     print(f"dryrun_multichip({n_devices}) MoE/ep: mesh={out['mesh']} "
           f"loss={moe_loss:.4f}")
-    print(f"dryrun_multichip({n_devices}): the pipeline (pp), "
-          f"tensor-parallel serving and two-host tiers are not run: they "
-          f"wait for ROADMAP queue 1 items 7-9")
+    # tensor-parallel serving: greedy tokens of the tp engine equal one
+    # device's (the JAX tier's contract)
+    if n_devices % 2 == 0:
+        out = spawn(serve_on_mesh, 2, "cpu", timeout_s,
+                    args=([serve_tier_run()],))[0][0]
+        print(serve_tier_line(n_devices, out))
+    print(f"dryrun_multichip({n_devices}): the pipeline (pp) and two-host "
+          f"tiers are not run: they wait for ROADMAP queue 1 items 8-9")

@@ -163,17 +163,20 @@ def load_params(model: LlamaModel, state_dict: Mapping[str, torch.Tensor],
 
 def build_model(cfg: LlamaConfig, state_dict: Mapping[str, torch.Tensor],
                 device, dtype=None, param_dtype=None,
-                train: bool = False) -> LlamaModel:
+                train: bool = False, mesh=None) -> LlamaModel:
     """A LlamaModel on ``device`` holding ``state_dict``'s values. Weights
     are stored in ``param_dtype`` (default: ``dtype``, the serving form,
     where no cast happens at use) and computed in ``dtype`` (default: the
     config's). The serving form is in eval mode with gradients off; with
     ``train=True`` the model is in train mode with gradients on. The
-    module is built on the meta device, so no weight is allocated twice."""
+    module is built on the meta device, so no weight is allocated twice.
+    With ``mesh`` the model holds the rank's parts, which ``state_dict``
+    must hold (``init_params(..., mesh=)``, ``shard_state_dict``)."""
     dtype = torch_dtype(dtype if dtype is not None else cfg.dtype)
     with torch.device("meta"):
         model = LlamaModel(cfg, dtype,
-                           param_dtype if param_dtype is not None else dtype)
+                           param_dtype if param_dtype is not None else dtype,
+                           mesh=mesh)
     load_params(model, state_dict, device)
     if train:
         return model.train().requires_grad_(True)

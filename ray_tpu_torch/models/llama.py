@@ -34,8 +34,10 @@ E/ep experts of F/tp each, the embedding and lm_head V/tp rows of the
 vocabulary; the differentiable collectives of ``ops/collectives.py``
 join the parts, and the loss is cross-entropy over the split vocabulary.
 A fused weight keeps its layout on each rank: the rank's q, k and v rows
-(gate and up columns), fused again in that order. Without a mesh nothing
-of this runs.
+(gate and up columns), fused again in that order. Serving on a mesh (the
+tp engine) hands each rank a ``PagedCache`` whose pool holds its Hkv/tp
+heads of every page, and takes its logits from ``logits``, gathered over
+tp. Without a mesh nothing of this runs.
 
 Parameter names are the state-dict keys ``models/convert.py`` produces
 from a Flax tree, e.g. ``layers.0.attn.qkv_proj.weight``.
@@ -515,7 +517,8 @@ class LlamaModel(nn.Module):
     With ``mesh`` (a ``DeviceMesh`` with the axes of ``parallel/mesh.py``)
     the layers hold this rank's part of the weights (``MeshPlace``); the
     mesh is refused at construction if the model does not split over it
-    (``check_mesh``). Serving takes no mesh."""
+    (``check_mesh``). Training and serving both take a mesh; serving's is
+    tp only (``parallel.mesh.serve_mesh``)."""
 
     # the trainer feature-detects the fused chunked-CE `targets=` path
     supports_fused_loss = True
@@ -605,15 +608,18 @@ class LlamaModel(nn.Module):
                         return_aux)
         if return_aux:
             x, aux = x
-        if targets is not None:
-            out = self.fused_nll(x, targets)
-        elif self.place is None:
-            out = self.lm_head(x)
-        else:  # every rank's vocabulary rows, gathered over tp
-            group = self.place.tp_group
-            out = gather_from(self.lm_head(copy_to(x, (group,))), group,
-                              dim=-1)
+        out = (self.fused_nll(x, targets) if targets is not None
+               else self.logits(x))
         return (out, aux) if return_aux else out
+
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        """``lm_head(x)`` over the whole vocabulary, in ``dtype``: on a
+        mesh each rank projects onto its V/tp rows and the parts are
+        gathered over tp, so every rank holds the same logits."""
+        if self.place is None:
+            return self.lm_head(x)
+        group = self.place.tp_group
+        return gather_from(self.lm_head(copy_to(x, (group,))), group, dim=-1)
 
     def fused_nll(self, x: torch.Tensor,
                   targets: torch.Tensor) -> torch.Tensor:

@@ -18,6 +18,12 @@ the same collective run over each in turn, which over the axes of a mesh
 covers the ranks that share every other coordinate. A group of one rank
 still runs its collective (a copy), so a one-rank mesh takes the path a
 larger one takes.
+
+Under ``torch.inference_mode`` (serving) there is no gradient to route:
+``copy_to`` returns its input and ``reduce_from`` sums in place into its
+input (a temporary of the layer that calls it), without the autograd
+Function and the clone, whose host time a decode step pays once a
+collective.
 """
 
 from __future__ import annotations
@@ -76,11 +82,19 @@ class _GatherFrom(torch.autograd.Function):
 
 def copy_to(x: torch.Tensor, groups: Sequence) -> torch.Tensor:
     """Identity forward; the gradient all-reduced over ``groups``."""
+    if torch.is_inference_mode_enabled():
+        return x
     return _CopyTo.apply(x, tuple(groups))
 
 
 def reduce_from(x: torch.Tensor, groups: Sequence) -> torch.Tensor:
-    """``x`` summed over ``groups``; the gradient passes unchanged."""
+    """``x`` summed over ``groups``; the gradient passes unchanged. Under
+    inference mode the sum is taken in place: ``x`` is overwritten and
+    returned."""
+    if torch.is_inference_mode_enabled():
+        for group in groups:
+            dist.all_reduce(x, group=group)
+        return x
     return _ReduceFrom.apply(x, tuple(groups))
 
 

@@ -15,6 +15,9 @@ the JAX names in the JAX order, outer to inner:
 Rank order is row-major over the dims, so tp ranks are neighbours, as
 JAX's device order puts tp on neighbouring chips. A batch is split over
 ``(dp, fsdp)`` only: ep and tp ranks hold the same tokens.
+
+A serve mesh (``serve_mesh``) is tp only: every other axis is 1, as in
+the JAX engine's ``resolve_serve_mesh``.
 """
 
 from __future__ import annotations
@@ -95,6 +98,29 @@ def create_mesh(config: Optional[MeshConfig] = None,
 def single_device_mesh(device_type: Optional[str] = None) -> DeviceMesh:
     """Every axis of size 1, over a world of one process."""
     return create_mesh(MeshConfig(fsdp=1), device_type)
+
+
+def serve_mesh(tp: int, device_type: Optional[str] = None) -> DeviceMesh:
+    """The serving engine's mesh over the initialised world:
+    ``create_mesh(MeshConfig(tp=tp, fsdp=1))``, every other axis 1."""
+    return create_mesh(MeshConfig(tp=tp, fsdp=1), device_type)
+
+
+def check_serve_mesh(mesh: DeviceMesh) -> int:
+    """The tp degree of a serve mesh; refuses a mesh with no "tp" axis, or
+    with another axis above 1 (serving splits over tp only)."""
+    names = tuple(mesh.mesh_dim_names or ())
+    if "tp" not in names:
+        raise ValueError(
+            f"serve mesh must carry a 'tp' axis (got {names}); build it with "
+            f"parallel.mesh.create_mesh(MeshConfig(tp=...)) — standard axes "
+            f"are {AXES}")
+    sizes = mesh_sizes(mesh)
+    other = {a: n for a, n in sizes.items() if a != "tp" and n > 1}
+    if other:
+        raise ValueError(f"serving splits over tp only, but the mesh has "
+                         f"{other}: build it with serve_mesh(tp)")
+    return sizes["tp"]
 
 
 def mesh_sizes(mesh: DeviceMesh) -> Dict[str, int]:

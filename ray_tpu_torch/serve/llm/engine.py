@@ -35,9 +35,19 @@ Also ported: request deadlines (``add_request(deadline=)``, pruning with
 the typed ``"expired"`` delta), the P/D KV handoff (``prefill_only``,
 ``extract_kv``, ``pop_extracted``, ``release_request``,
 ``inject_request``; a blob of either package injects into the other),
-``warmup`` and ``measure_prefill``. Tensor and pipeline parallelism are
-not ported: ``EngineConfig`` refuses ``tp`` and ``pp`` (ROADMAP queue 1
-items 7 and 8).
+``warmup`` and ``measure_prefill``.
+
+Tensor parallelism (``EngineConfig.tp``, or ``LLMEngine(mesh=)``): one
+process per tp rank (``serve/llm/sharding.py``). Every rank builds the
+engine; rank 0 runs the scheduler and calls ``step()``, the other ranks
+call ``follow()``, which runs rank 0's dispatches, sent as frames, on
+their shard until rank 0's ``close()``. The weights and the pool
+``[L, P, Hkv/tp, page, 2*D]`` are split over tp, the block tables stay
+global, the logits are gathered over tp before the sampler, and every
+rank samples with the same (request, seed, count) keys, so every rank's
+decode carry holds the same tokens. A P/D blob holds every kv head
+whatever the tp of the engine that wrote it. Pipeline parallelism is not
+ported: ``EngineConfig`` refuses ``pp`` (ROADMAP queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -51,12 +61,16 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ...models.config import get_config, torch_dtype
 from ...models.convert import build_model, init_params
 from ...models.llama import PagedCache
+from ...ops.collectives import gather_from
 from ...ops.paged_attention import check_kernel_head_dim
+from ...parallel.sharding import split_dims
 from .cache import OutOfPages, PageAllocator
+from .sharding import FrameChannel, resolve_serve_mesh
 
 WAITING, RUNNING, FINISHED = "WAITING", "RUNNING", "FINISHED"
 
@@ -155,17 +169,22 @@ class EngineConfig:
     spec_lookahead: int = 0
     # "cuda" (default) or "cpu"; a cuda engine with no card raises
     device: str = "cuda"
-    # not ported yet (ROADMAP queue 1 items 7 and 8); kept so configs
-    # written for the JAX engine parse, and refused at any value but 1
+    # tensor-parallel degree: > 1 splits the weights and the pool's Hkv
+    # axis over serve_mesh(tp) of the initialised world, one process per
+    # rank (serve/llm/sharding.py). 1 = single-device engine. An explicit
+    # mesh passed to LLMEngine(mesh=...) overrides this degree.
     tp: int = 1
+    # not ported yet (ROADMAP queue 1 item 8); kept so configs written for
+    # the JAX engine parse, and refused at any value but 1
     pp: int = 1
 
     def __post_init__(self):
-        for name in ("tp", "pp"):
-            if getattr(self, name) != 1:
-                raise ValueError(
-                    f"EngineConfig.{name}={getattr(self, name)!r}: not "
-                    f"supported by the PyTorch engine yet (only 1)")
+        if self.tp < 1:
+            raise ValueError(f"EngineConfig.tp={self.tp!r}: must be >= 1")
+        if self.pp != 1:
+            raise ValueError(
+                f"EngineConfig.pp={self.pp!r}: not supported by the "
+                f"PyTorch engine yet (only 1)")
 
 
 _MAX_TOP_K = 64
@@ -190,22 +209,31 @@ def _kv_from_blob(handoff: Dict[str, Any]) -> torch.Tensor:
 
 
 class LLMEngine:
-    """Single-process engine. Not thread-safe except `add_request`/`abort`/
+    """The engine. Not thread-safe except `add_request`/`abort`/
     `inject_request`/`pop_extracted` (which only touch state under the
     intake lock); one thread calls `step()`.
 
-    params: a state dict (e.g. from ``models.convert.params_from_flax``)
-    or None for a seeded random init made on the device."""
+    params: a full state dict (e.g. from ``models.convert.params_from_flax``;
+    a tp engine keeps its rank's part) or None for a seeded random init
+    made on the device (a tp rank draws each tensor whole and keeps its
+    part, so it holds a slice of the one-device engine's weights). mesh:
+    None, an int tp degree or a ``DeviceMesh`` with a tp axis
+    (``serve/llm/sharding.py``, ``resolve_serve_mesh``); on a mesh every
+    rank constructs the engine, rank 0 drives it and the others
+    ``follow()``."""
 
     def __init__(self, config: EngineConfig,
-                 params: Optional[Dict[str, torch.Tensor]] = None):
+                 params: Optional[Dict[str, torch.Tensor]] = None,
+                 mesh=None):
         self.config = config
-        self._build_compute(params)
+        self._build_compute(params, mesh)
         self.max_pages_per_seq = config.max_model_len // config.page_size
-        self.allocator = PageAllocator(config.num_pages, config.page_size)
+        self.allocator = PageAllocator(
+            config.num_pages, config.page_size,
+            shard_degree=(self.sharding.tp if self.sharding else 1))
         self._init_host_state()
 
-    def _build_compute(self, params) -> None:
+    def _build_compute(self, params, mesh) -> None:
         config = self.config
         self.device = torch.device(config.device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -217,20 +245,35 @@ class LLMEngine:
             config.model, scan_layers=True, remat=False, dtype=config.dtype,
             param_dtype=config.dtype, max_seq_len=config.max_model_len,
             **config.model_overrides)
+        # before the world or the device is touched: a degree that does
+        # not divide the heads fails at construction
+        self.sharding = resolve_serve_mesh(mesh, config.tp,
+                                           self.device.type, self.model_cfg)
+        mesh = self.sharding.mesh if self.sharding else None
+        tp = self.sharding.tp if self.sharding else 1
         # before any weight is made: the paged path runs K1 and K2
         check_kernel_head_dim(self.model_cfg.head_dim_, dtype, self.device,
                               decode=True, owner="LLMEngine")
         if params is None:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(config.seed)
-            params = init_params(self.model_cfg, gen, self.device, dtype)
-        self.model = build_model(self.model_cfg, params, self.device, dtype)
+            params = init_params(self.model_cfg, gen, self.device, dtype,
+                                 mesh=mesh)
+        elif self.sharding is not None:
+            params = self.sharding.shard_params(params, self.model_cfg)
+        self.model = build_model(self.model_cfg, params, self.device, dtype,
+                                 mesh=mesh)
         cfg_m = self.model_cfg
-        # page-major combined layout [L, P, Hkv, page, 2*D]
+        # page-major combined layout [L, P, Hkv, page, 2*D]; a tp rank
+        # holds Hkv/tp heads of every page
         self.kv_pages = torch.zeros(
-            (cfg_m.num_layers, config.num_pages, cfg_m.num_kv_heads,
+            (cfg_m.num_layers, config.num_pages, cfg_m.num_kv_heads // tp,
              config.page_size, 2 * cfg_m.head_dim_),
             dtype=dtype, device=self.device)
+        self._frames = None
+        if self.sharding is not None:
+            self._frames = FrameChannel(
+                dist.get_process_group_ranks(self.model.place.tp_group))
         # device-resident last-sampled token per slot: the decode carry
         self.slot_ids = torch.zeros((config.max_batch, 1), dtype=torch.long,
                                     device=self.device)
@@ -338,7 +381,13 @@ class LLMEngine:
           under the pipeline depth, so a running slot's inter-token gap
           is one decode chunk + one prefill chunk instead of one whole
           prompt.
+
+        On a mesh only rank 0 steps; the other ranks ``follow()``.
         """
+        if self._frames is not None and not self._frames.is_source:
+            raise RuntimeError(
+                f"rank {dist.get_rank()} follows the tp group's first rank: "
+                f"call follow(), not step()")
         deltas: List[OutputDelta] = list(self._pending_deltas)
         self._pending_deltas.clear()
         self._drain_intake(deltas)
@@ -565,12 +614,34 @@ class LLMEngine:
             out[i] = (probs[i] / race).argmax()
         return out
 
-    def _compute_prefill(self, rb, cp, bt, total, ids, positions, gather,
-                         temp, topk, keys):
-        """One prefill dispatch; returns the handle of its [rb] tokens.
-        cp (0 or max_pages_per_seq) is the cached-prefix width: rows
-        starting past position 0 (a prefix-cache hit, or chunk k > 0)
-        attend to their earlier pages through K2's ctx part."""
+    def _dispatch(self, op: str, *args):
+        """Run dispatch ``op`` (``_run_<op>``) on this rank, after sending
+        it to the followers as a frame on a mesh."""
+        if self._frames is not None:
+            self._frames.send(op, *args)
+        return getattr(self, "_run_" + op)(*args)
+
+    def _compute_prefill(self, *args):
+        """One prefill dispatch (``_run_prefill``); returns the handle of
+        its [rb] tokens."""
+        return self._to_host_async(self._dispatch("prefill", *args))
+
+    def _compute_verify(self, *args):
+        """One speculative verify dispatch (``_run_verify``); returns the
+        handle of its [rb, sb] tokens."""
+        return self._to_host_async(self._dispatch("verify", *args))
+
+    def _compute_decode(self, *args):
+        """One fused K-step decode dispatch (``_run_decode``); returns the
+        handle of its [K, S] tokens."""
+        return self._to_host_async(self._dispatch("decode", *args))
+
+    def _run_prefill(self, rb, cp, bt, total, ids, positions, gather, temp,
+                     topk, keys) -> torch.Tensor:
+        """The prefill dispatch's [rb] tokens. cp (0 or max_pages_per_seq)
+        is the cached-prefix width: rows starting past position 0 (a
+        prefix-cache hit, or chunk k > 0) attend to their earlier pages
+        through K2's ctx part."""
         with torch.inference_mode():
             cache = PagedCache(self.kv_pages, self._h2d(bt),
                                self._h2d(total), ctx_pages=cp)
@@ -579,31 +650,28 @@ class LLMEngine:
             # project only each row's last prompt position
             rows = h[torch.arange(rb, device=self.device),
                      self._h2d(gather).long()]
-            logits = self.model.lm_head(rows).float()
-            return self._to_host_async(self._sample(logits, temp, topk,
-                                                    keys))
+            logits = self.model.logits(rows).float()
+            return self._sample(logits, temp, topk, keys)
 
-    def _compute_verify(self, bt, total, ids, positions):
-        """One speculative verify dispatch (the ``verify`` jit): shaped
+    def _run_verify(self, bt, total, ids, positions) -> torch.Tensor:
+        """The speculative verify dispatch (the ``verify`` jit): shaped
         like a prefill whose rows start at total-1 (not a page multiple),
         attending to every earlier page through K2's ctx part, with the
         greedy token after EVERY input column. The float32 argmax runs on
-        the device, so only int tokens come back; returns the handle of
-        [rb, sb] tokens."""
+        the device, so only int tokens come back: [rb, sb]."""
         with torch.inference_mode():
             cache = PagedCache(self.kv_pages, self._h2d(bt),
                                self._h2d(total),
                                ctx_pages=self.max_pages_per_seq)
             h = self.model.hidden(self._h2d(ids), self._h2d(positions),
                                   cache)
-            toks = self.model.lm_head(h).float().argmax(dim=-1)
-            return self._to_host_async(toks)
+            return self.model.logits(h).float().argmax(dim=-1)
 
-    def _compute_decode(self, k_steps, bt, total, caps, positions,
-                        override_mask, override_ids, temp, topk,
-                        keys_steps):
-        """One fused K-step decode dispatch over the full slot set; returns
-        the handle of its [K, S] tokens."""
+    def _run_decode(self, k_steps, bt, total, caps, positions,
+                    override_mask, override_ids, temp, topk,
+                    keys_steps) -> torch.Tensor:
+        """The fused K-step decode dispatch over the full slot set: its
+        [K, S] tokens; the decode carry is updated in place."""
         with torch.inference_mode():
             bt_t = self._h2d(bt)
             tot = self._h2d(total)
@@ -616,7 +684,7 @@ class LLMEngine:
             for k in range(k_steps):
                 cache = PagedCache(self.kv_pages, bt_t, tot)
                 h = self.model.hidden(ids, pos, cache)
-                logits = self.model.lm_head(h[:, 0]).float()
+                logits = self.model.logits(h[:, 0]).float()
                 tok = self._sample(logits, temp, topk, keys_steps[k])
                 toks.append(tok)
                 # caps clamp: past a slot's ceiling positions freeze at
@@ -628,7 +696,7 @@ class LLMEngine:
             # carry the last sampled token forward for ACTIVE slots only
             self.slot_ids.copy_(torch.where(active[:, None], ids,
                                             self.slot_ids))
-            return self._to_host_async(torch.stack(toks))
+            return torch.stack(toks)
 
     def _dispatch_prefills(self) -> None:
         """Legacy (prefill-priority) mode: admit as many waiting requests
@@ -1168,9 +1236,9 @@ class LLMEngine:
         bfloat16 of its own): a bf16 pool's values are widened exactly,
         with ``"kv_dtype": "bfloat16"``, and the JAX engine's cast to its
         pool's bfloat16 and ``_kv_from_blob``'s both round them back bit
-        for bit."""
-        idx = torch.tensor(req.pages, dtype=torch.long, device=self.device)
-        kv = self.kv_pages.index_select(1, idx).cpu()
+        for bit. A tp engine gathers every rank's kv heads (the blob is
+        the one a one-device engine writes)."""
+        kv = self._dispatch("gather_kv", list(req.pages)).cpu()
         now = time.monotonic()
         disp = req.dispatched_t if req.dispatched_t is not None \
             else req.arrival_t
@@ -1186,6 +1254,16 @@ class LLMEngine:
         if kv.dtype == torch.bfloat16:
             blob["kv_dtype"] = "bfloat16"
         return blob
+
+    def _run_gather_kv(self, pages: List[int]) -> torch.Tensor:
+        """The pages ``[L, n, Hkv, page, 2*D]`` on the device, every rank's
+        kv heads gathered over tp in rank order on a mesh."""
+        with torch.inference_mode():
+            idx = torch.tensor(pages, dtype=torch.long, device=self.device)
+            kv = self.kv_pages.index_select(1, idx)
+            if self.sharding is not None:
+                kv = gather_from(kv, self.model.place.tp_group, dim=2)
+            return kv
 
     def extract_kv(self, request_id: str) -> Dict[str, Any]:
         """Gather a running request's KV pages + generation state into a
@@ -1233,7 +1311,9 @@ class LLMEngine:
         applied inline) so injections respect the same max_batch/page
         admission control as fresh prompts."""
         shape = tuple(np.shape(handoff["kv"]))
-        pool = tuple(self.kv_pages.shape)
+        pool = list(self.kv_pages.shape)
+        pool[2] = self.model_cfg.num_kv_heads  # a blob holds every kv head
+        pool = tuple(pool)
         if len(shape) != 5 or shape[:1] + shape[2:] != pool[:1] + pool[2:]:
             raise ValueError(
                 f"handoff kv {shape} does not fit this engine's pool "
@@ -1261,11 +1341,13 @@ class LLMEngine:
         kv = _kv_from_blob(handoff)
         self._drain_pipeline(deltas)
         pages = self.allocator.allocate(n)
-        # one in-place copy along the page axis; stream order puts it
-        # after every dispatch already enqueued
-        idx = torch.tensor(pages, dtype=torch.long, device=self.device)
-        self.kv_pages.index_copy_(
-            1, idx, kv.to(self.device, self.kv_pages.dtype))
+        if self._frames is not None:
+            # each rank's Hkv/tp heads of the blob, scattered over the
+            # frames' group
+            self._frames.send("inject", pages, None)
+            kv = self._frames.scatter(list(kv.chunk(self.sharding.tp, 2)),
+                                      self._pages_shape(n))
+        self._run_inject(pages, kv)
         req = Request(request_id, [int(t) for t in handoff["prompt_ids"]],
                       sampling)
         req.output_ids = [int(t) for t in handoff["output_ids"]]
@@ -1288,6 +1370,43 @@ class LLMEngine:
         self.requests[request_id] = req
         self.running.append(req)
         return True
+
+    def _pages_shape(self, n: int) -> tuple:
+        """The shape of ``n`` pages of this rank's pool."""
+        return (self.kv_pages.shape[0], n, *self.kv_pages.shape[2:])
+
+    def _run_inject(self, pages: List[int], kv) -> None:
+        """Write ``kv`` [L, n, Hkv/tp, page, 2*D] (a follower: None, its
+        part comes from rank 0's scatter) into ``pages``: one in-place copy
+        along the page axis; stream order puts it after every dispatch
+        already enqueued."""
+        if kv is None:
+            kv = self._frames.scatter(None, self._pages_shape(len(pages)))
+        idx = torch.tensor(pages, dtype=torch.long, device=self.device)
+        self.kv_pages.index_copy_(
+            1, idx, kv.to(self.device, self.kv_pages.dtype))
+
+    # ------------------------------------------------------ tp followers
+
+    def follow(self) -> None:
+        """A follower's loop (every rank of the mesh but rank 0): run each
+        frame's dispatch on this rank's shard, in rank 0's order, until
+        rank 0's ``close()``. Raises if rank 0 is gone, or after
+        ``sharding.FOLLOW_TIMEOUT_S`` without a frame."""
+        if self._frames is None or self._frames.is_source:
+            raise RuntimeError("follow() is for the ranks of a tp mesh but "
+                               "its first, which calls step()")
+        while True:
+            op, args = self._frames.recv()
+            if op == "close":
+                return
+            getattr(self, "_run_" + op)(*args)
+
+    def close(self) -> None:
+        """On a mesh, rank 0 ends the followers' ``follow()``; a no-op
+        elsewhere."""
+        if self._frames is not None and self._frames.is_source:
+            self._frames.send("close")
 
     # ----------------------------------------------------------- warmup
 
@@ -1357,8 +1476,8 @@ class LLMEngine:
         dispatch's whole round trip on the card, not a network link), and
         ``*_compute`` the per-dispatch estimate (chain - rtt)/(iters - 1).
         FLOPs follow the training convention: 2 N parameters + 4 L H hd S
-        attention per token, N counted from the model. ``peak_flops`` is
-        the caller's (the engine knows no device peak)."""
+        attention per token, N = ``param_count()``. ``peak_flops`` is the
+        caller's (the engine knows no device peak)."""
         if self._inflight:
             raise RuntimeError("measure_prefill requires an idle engine")
         sb = seq_len or max(self.config.prefill_buckets)
@@ -1386,7 +1505,7 @@ class LLMEngine:
         dt = time.perf_counter() - t0
 
         cfg = self.model_cfg
-        n_params = sum(p.numel() for p in self.model.parameters())
+        n_params = self.param_count()
         flops_per_tok = (2 * n_params
                          + 4 * cfg.num_layers * cfg.num_heads
                          * cfg.head_dim_ * sb)
@@ -1412,11 +1531,18 @@ class LLMEngine:
                 100.0 * achieved_compute / peak_flops, 2)
         return out
 
+    def param_count(self) -> int:
+        """The model's parameters, every rank's parts on a mesh (the
+        global count, as the JAX engine counts its global tree)."""
+        tp = self.sharding.tp if self.sharding else 1
+        return sum(p.numel() * (tp if "tp" in split_dims(name) else 1)
+                   for name, p in self.model.named_parameters())
+
     # ------------------------------------------------------------ stats
 
     def stats(self) -> Dict[str, Any]:
         free = self.allocator.num_free()
-        return {
+        out = {
             "running": len(self.running),
             "waiting": len(self.waiting),
             "inflight": len(self._inflight),
@@ -1428,3 +1554,7 @@ class LLMEngine:
             "pages_free": free,
             **self.allocator.stats,
         }
+        if self.sharding is not None:
+            out["sharding"] = self.sharding.page_accounting(
+                self.config, self.model_cfg)
+        return out

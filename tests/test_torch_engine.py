@@ -157,8 +157,16 @@ def test_cuda_engine_without_card_raises():
 
 @pytest.mark.parametrize("option", [dict(tp=2), dict(pp=2)])
 def test_unported_engine_options_are_refused(option):
-    with pytest.raises(ValueError, match="not supported"):
-        EngineConfig(**CPU_CFG, **option)
+    """pp is not ported. tp is, on a world of tp ranks
+    (tests/test_torch_tp_serve.py): without one the engine is refused at
+    construction."""
+    if "pp" in option:
+        with pytest.raises(ValueError, match="not supported"):
+            EngineConfig(**CPU_CFG, **option)
+    else:
+        with pytest.raises(RuntimeError, match="initialised world of 2 "
+                           "ranks"):
+            LLMEngine(EngineConfig(**CPU_CFG, **option))
 
 
 def test_package_imports_no_jax_and_nothing_of_ray_tpu():

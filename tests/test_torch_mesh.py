@@ -323,7 +323,10 @@ def test_dryrun_multichip_prints_its_two_tiers(capsys):
     assert lines[1].startswith("dryrun_multichip(4) MoE/ep: mesh={'pp': 1, "
                                "'dp': 1, 'fsdp': 1, 'sp': 1, 'ep': 2, "
                                "'tp': 2} loss=")
-    assert "items 7-9" in lines[2]
+    assert lines[2].startswith("dryrun_multichip(4) serve/tp: mesh={'pp': 1, "
+                               "'dp': 1, 'fsdp': 1, 'sp': 1, 'ep': 1, "
+                               "'tp': 2} greedy parity ok")
+    assert "items 8-9" in lines[3]
 
 
 def test_active_mesh_is_the_ambient_mesh_of_its_thread():
