@@ -88,6 +88,25 @@ every thread's traceback and exit code 1.
    and 1e-3 of phase 7's, the loss must fall and K2/K3/K4 must have
    launched as the layers need (added to the kernels' launches); ms per
    step, tokens/s and peak memory beside phase 7's;
+7d. sp_attention: ring_attention and ulysses_attention over the one-rank
+   sp group of create_mesh(MeshConfig(sp=1, fsdp=1)) (NCCL) at llama-1b's
+   training shapes (bf16, B 4, S 2048, Hq 32, Hkv 8, D 64; causal, and
+   packed segments), forward and backward, each against the dense kernel
+   path (K2, K3, K4) and the plain version within the bf16 tolerance;
+   Ulysses must launch K2, K3 and K4 (added to the kernels' launches);
+   CUDA-event times of a forward and backward of ring, Ulysses and
+   dense;
+7e. pp_trainer: phase 7's run (llama-1b, its seed, batch and optimizer)
+   through PipelinedTrainer on create_mesh(MeshConfig(pp=1, fsdp=1)), the
+   one-stage bypass: the loss and grad norm of steps 1-2 within rtol 1e-4
+   and 1e-3 of phase 7's, of every step within 1e-3 and 1e-2 (the dense
+   loss rounds the head's product otherwise, and AdamW's updates grow
+   the difference: RTOL_PP_LOSS), the loss must fall and K2/K3/K4 must launch as the
+   layers need (added to the kernels' launches); ms per step, tokens/s
+   and peak memory beside phase 7's; then the GPipe loop itself,
+   gpipe(stage, 1, 4), on the same stack and batch (the one-rank shift,
+   a copy, and the float32 broadcast, a one-rank NCCL all-reduce): its
+   loss and gradients against the bypass's;
 8. train reference: at llama-1b width with 2 layers in float32, one step
    on the card and on the CPU's plain path from the same parameters must
    give the same loss, grad norm and updated parameters.
@@ -144,6 +163,36 @@ RTOL_GNORM_F32 = 1e-4
 # vocabulary is taken in another order, and FSDP copies the gradients
 RTOL_MESH_LOSS = 1e-4
 RTOL_MESH_GNORM = 1e-3
+# ring attention's gradients (phase sp_attention) against the kernels and
+# the plain version: autograd of the ring's blocks takes dp = do . v^T
+# as the bf16 product that JAX's design gives it (p is rounded to v's
+# type before p . V, so its cotangent is bf16 too), before the softmax
+# backward's subtraction dp - delta, where the kernels keep dp in float32
+# and round ds: a rounding step of dp (up to 2^-8 x 10) survives the
+# subtraction. At S 2048 a CPU emulation read errors up to 0.027 where the
+# value is 0.08 (dk; 0.0208 allowed at 2e-2 + 1e-2 x |ref|)
+ATOL_RING_GRAD_BF16 = 5e-2
+# the pipelined trainer at one stage against phase 7: the same parameters,
+# batch and layers; its loss is JAX's dense cross-entropy over [B, S, V]
+# logits where phase 7's is the fused chunked one (the head's bf16
+# product in one [8192, 2048] x [2048, 32000] call instead of 512-row
+# chunks, so some logits round otherwise). Steps 1 and 2 (the parameters
+# phase 7 starts from: the first step's learning rate is 0) are held to
+# mesh_trainer's tolerances. From step 3 on AdamW's normalised update
+# moves every weight by about lr whatever its gradient's size, so the
+# rounding differences of the first update grow: on an H100 the losses
+# read equal at steps 1-3, then 1.1e-5, 2.9e-5 and 1.4e-4 apart at steps
+# 4-6, the grad norms up to 7.5e-4 apart. Every step is held to 1e-3 and
+# 1e-2
+RTOL_PP_LOSS = 1e-3
+RTOL_PP_GNORM = 1e-2
+# the GPipe loop at one stage (4 microbatches of one row) against the
+# bypass (the whole batch at once), from the same parameters: each bf16
+# product of a microbatch may round otherwise than the batch's, and a
+# weight's gradient is summed over the 4 microbatches in float32 where
+# the batch's is one bf16 product (2^-8 relative a rounding)
+RTOL_GPIPE_LOSS = 1e-3
+RTOL_GPIPE_GRADS = 1e-2
 # Adam's first moment (0.1 x the clipped gradient), per tensor, relative
 # to the tensor's largest entry: sums over 512 tokens in another order
 RTOL_MU_F32 = 1e-4
@@ -169,7 +218,8 @@ NOISY_GRAD = 1e-6
 DEADLINES_S = {"device": 30, "build": 120, "kernels": 60, "engine": 240,
                "tp_engine": 240, "engine_v2": 150, "moe": 350, "moe_reference": 200,
                "reference": 150, "train_kernels": 30, "trainer": 45,
-               "moe_trainer": 30, "mesh_trainer": 60, "train_reference": 45}
+               "moe_trainer": 30, "mesh_trainer": 60, "sp_attention": 60,
+               "pp_trainer": 90, "train_reference": 45}
 
 
 def log(msg: str) -> None:
@@ -242,10 +292,32 @@ def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
-def close_bf16(got, want) -> bool:
+def close_bf16(got, want, atol: float = ATOL_O_BF16) -> bool:
     diff = (got.float() - want.float()).abs()
-    return bool((diff <= ATOL_O_BF16 + RTOL_O_BF16 * want.float().abs())
-                .all())
+    return bool((diff <= atol + RTOL_O_BF16 * want.float().abs()).all())
+
+
+@contextlib.contextmanager
+def one_rank_world(what: str):
+    """A world of one rank over NCCL (a file store in a temporary
+    directory), destroyed on exit."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel.distributed import init_process_group
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        init_process_group("cuda", rank=0, world_size=1,
+                           store=dist.FileStore(os.path.join(tmp, "store"),
+                                                1), timeout_s=120)
+        log(f"{what}: world of 1 rank over {dist.get_backend()} in "
+            f"{time.perf_counter() - t0:.1f} s")
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()
 
 
 # the earlier tree's kernel libraries (--parent), else None
@@ -884,8 +956,6 @@ def run_mesh_trainer(torch, reset_counts, ref, smi):
     """Phase mesh_trainer: phase 7's run (llama-1b, seed 7, 6 steps on 4 x
     2048 tokens, default_optimizer(warmup=1)) through the mesh trainer on
     a world of one rank over NCCL, each step held to phase 7's ``ref``."""
-    import tempfile
-
     import torch.distributed as dist
 
     from torch.profiler import ProfilerActivity, profile
@@ -893,59 +963,52 @@ def run_mesh_trainer(torch, reset_counts, ref, smi):
     from ray_tpu_torch.models.config import get_config
     from ray_tpu_torch.models.llama import LlamaModel
     from ray_tpu_torch.ops.flash_attention import flash_attention
-    from ray_tpu_torch.parallel.distributed import init_process_group
     from ray_tpu_torch.parallel.mesh import MeshConfig, create_mesh
     from ray_tpu_torch.parallel.train_lib import (ShardedTrainer,
                                                   default_optimizer)
 
     cfg = get_config("llama-1b")
     b, s, steps = 4, 2048, 6
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        init_process_group("cuda", rank=0, world_size=1,
-                           store=dist.FileStore(os.path.join(tmp, "store"),
-                                                1), timeout_s=120)
-        try:
-            mesh = create_mesh(MeshConfig(fsdp=1))
-            with torch.device("meta"):
-                model = LlamaModel(cfg)
-            trainer = ShardedTrainer(model, mesh, optimizer=default_optimizer(
-                warmup=1))
-            rng = np.random.default_rng(7)
-            batch = {"input_ids": torch.from_numpy(rng.integers(
-                0, cfg.vocab_size, (b, s), dtype=np.int32)).cuda()}
-            state = trainer.init(torch.Generator(device="cuda").manual_seed(
-                7), batch)
+    t0 = time.perf_counter()
+    with one_rank_world("mesh trainer"):
+        mesh = create_mesh(MeshConfig(fsdp=1))
+        with torch.device("meta"):
+            model = LlamaModel(cfg)
+        trainer = ShardedTrainer(model, mesh, optimizer=default_optimizer(
+            warmup=1))
+        rng = np.random.default_rng(7)
+        batch = {"input_ids": torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (b, s), dtype=np.int32)).cuda()}
+        state = trainer.init(torch.Generator(device="cuda").manual_seed(
+            7), batch)
+        torch.cuda.synchronize()
+        log(f"mesh trainer built (world of 1 rank over "
+            f"{dist.get_backend()}, mesh "
+            f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}, FSDP2 over "
+            f"(dp, fsdp)) in {time.perf_counter() - t0:.1f} s")
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()  # this phase's main-path run starts here
+        losses, gnorms, step_ms = [], [], []
+        for _ in range(steps):
             torch.cuda.synchronize()
-            log(f"mesh trainer built (world of 1 rank over "
-                f"{dist.get_backend()}, mesh "
-                f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}, FSDP2 over "
-                f"(dp, fsdp)) in {time.perf_counter() - t0:.1f} s")
-            torch.cuda.reset_peak_memory_stats()
-            reset_counts()  # this phase's main-path run starts here
-            losses, gnorms, step_ms = [], [], []
-            for _ in range(steps):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                state, m = trainer.step(state, batch)
-                torch.cuda.synchronize()
-                step_ms.append((time.perf_counter() - t0) * 1e3)
-                losses.append(float(m["loss"]))
-                gnorms.append(float(m["grad_norm"]))
-            launches = {"flash_fwd_train": flash_attention.launches,
-                        "flash_bwd_dq": flash_attention.dq_launches,
-                        "flash_bwd_dkv": flash_attention.dkv_launches}
-            peak = torch.cuda.max_memory_allocated()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                state, m = trainer.step(state, batch)
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-            del trainer, model, state, m
-        finally:
-            dist.destroy_process_group()
+            t0 = time.perf_counter()
+            state, m = trainer.step(state, batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["grad_norm"]))
+        launches = {"flash_fwd_train": flash_attention.launches,
+                    "flash_bwd_dq": flash_attention.dq_launches,
+                    "flash_bwd_dkv": flash_attention.dkv_launches}
+        peak = torch.cuda.max_memory_allocated()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = trainer.step(state, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        del trainer, model, state, m
     prof_out = device_summary(prof, wall)
     prof_out["host_ops"] = host_summary(prof)
     loss_err = [abs(a - r) / abs(r) for a, r in zip(losses, ref["losses"])]
@@ -981,6 +1044,225 @@ def run_mesh_trainer(torch, reset_counts, ref, smi):
             "flash_bwd_dq": cfg.num_layers * steps,
             "flash_bwd_dkv": cfg.num_layers * steps}
     assert launches == want, f"launches {launches}, expected {want}"
+    return out
+
+
+def run_sp_attention(torch, reset_counts, smi):
+    """Phase sp_attention: ring_attention and ulysses_attention over the
+    one-rank sp group of create_mesh(MeshConfig(sp=1, fsdp=1)) at
+    llama-1b's training shapes (bf16, causal, and packed segments),
+    forward and backward, each against the dense kernel path (K2, K3, K4
+    through flash_attention) and the plain version on the same inputs;
+    Ulysses must launch K2, K3 and K4. CUDA-event times of a forward and
+    backward of each."""
+    from ray_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_bwd_plain, flash_attention_plain)
+    from ray_tpu_torch.ops.ring_attention import (ring_attention,
+                                                  ulysses_attention)
+    from ray_tpu_torch.parallel.mesh import MeshConfig, create_mesh
+
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(10)
+    b, s, hq, hkv, d = 4, 2048, 32, 8, 64
+    seg = torch.tensor([0] * 512 + [1] * 1024 + [2] * 512,
+                       dtype=torch.int32, device=dev)
+    packed = torch.stack([seg, seg, torch.zeros_like(seg), seg.flip(0)])
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf16)
+
+    q, k, v, do = (randn(b, s, hq, d), randn(b, s, hkv, d),
+                   randn(b, s, hkv, d), randn(b, s, hq, d))
+    out = {"shapes": [b, s, hq, hkv, d], "cases": {}}
+    launches = {"flash_fwd_train": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    with one_rank_world("sp attention"):
+        group = create_mesh(MeshConfig(sp=1, fsdp=1)).get_group("sp")
+        paths = {"ring": lambda *x, segs: ring_attention(
+                     *x, group=group, causal=True, segment_ids=segs),
+                 "ulysses": lambda *x, segs: ulysses_attention(
+                     *x, group=group, causal=True, segment_ids=segs),
+                 "dense": lambda *x, segs: flash_attention(
+                     *x, causal=True, segment_ids=segs)}
+
+        def fwd_bwd(path, segs):
+            x = [t.detach().requires_grad_() for t in (q, k, v)]
+            o = paths[path](*x, segs=segs)
+            o.backward(do)
+            return [o.detach()] + [t.grad for t in x]
+
+        for case, segs in (("causal", None), ("packed segments", packed)):
+            kw = dict(causal=True, q_seg=segs, kv_seg=segs, scale=d ** -0.5)
+            o_p, lse_p = flash_attention_plain(q, k, v, **kw)
+            plain = [o_p, *flash_attention_bwd_plain(q, k, v, o_p, lse_p, do,
+                                                     **kw)]
+            dense = fwd_bwd("dense", segs)
+            reset_counts()  # Ulysses' own launches
+            got = {"ulysses": fwd_bwd("ulysses", segs)}
+            torch.cuda.synchronize()
+            for name, n in (("flash_fwd_train", flash_attention.launches),
+                            ("flash_bwd_dq", flash_attention.dq_launches),
+                            ("flash_bwd_dkv", flash_attention.dkv_launches)):
+                assert n >= 1, f"Ulysses ({case}) did not launch {name}"
+                launches[name] += n
+            got["ring"] = fwd_bwd("ring", segs)
+            torch.cuda.synchronize()
+            errs, bad = {}, []
+            for path, res in got.items():
+                for ref_name, ref in (("dense", dense), ("plain", plain)):
+                    for t, name, want in zip(res, ("o", "dq", "dk", "dv"),
+                                             ref):
+                        errs[f"{path} vs {ref_name} {name}"] = max_err(t,
+                                                                      want)
+                        atol = (ATOL_RING_GRAD_BF16 if path == "ring"
+                                and name != "o" else ATOL_O_BF16)
+                        if not close_bf16(t, want, atol):
+                            bad.append(f"{path} {name} vs {ref_name}")
+            times = {path: time_ms(lambda path=path: fwd_bwd(path, segs))
+                     for path in ("dense", "ulysses", "ring")}
+            log(f"sp attention, {case} (B={b} S={s} Hq={hq} Hkv={hkv} "
+                f"D={d}, one sp rank): max errors "
+                + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+                + f" (tolerance {ATOL_O_BF16} + {RTOL_O_BF16}*|ref|; the "
+                f"ring's gradients {ATOL_RING_GRAD_BF16} + {RTOL_O_BF16}"
+                f"*|ref|)")
+            log(f"sp attention, {case} on {smi}: forward + backward ms: "
+                + ", ".join(f"{p} {t:.4f}" for p, t in times.items()))
+            assert not bad, f"{case}: {bad} disagree"
+            out["cases"][case] = {"max_abs_err": errs, "fwd_bwd_ms": times}
+    log(f"sp attention: Ulysses' kernel launches {json.dumps(launches)}")
+    out["launches"] = launches
+    return out
+
+
+def run_pp_trainer(torch, reset_counts, ref, smi):
+    """Phase pp_trainer: PipelinedTrainer on llama-1b at full width and
+    depth on create_mesh(MeshConfig(pp=1, fsdp=1)) over a world of one
+    rank (JAX's one-stage bypass), phase 7's seed, batch and optimizer:
+    each of 6 steps held to phase 7's ``ref``; then the GPipe loop itself,
+    gpipe(stage, 1, 4) (4 microbatches, the one-rank shift and the
+    float32 broadcast over NCCL), on the same stack and batch, its loss
+    and gradients held to the bypass's."""
+    from ray_tpu_torch.models.config import get_config
+    from ray_tpu_torch.models.llama import LlamaModel
+    from ray_tpu_torch.ops.flash_attention import flash_attention
+    from ray_tpu_torch.ops.pipeline import gpipe
+    from ray_tpu_torch.parallel.mesh import MeshConfig, create_mesh
+    from ray_tpu_torch.parallel.pp_train import PipelinedTrainer
+    from ray_tpu_torch.parallel.train_lib import (default_optimizer,
+                                                  global_norm)
+
+    cfg = get_config("llama-1b")
+    b, s, steps, m = 4, 2048, 6, 4
+    with one_rank_world("pp trainer"):
+        mesh = create_mesh(MeshConfig(pp=1, fsdp=1))
+        with torch.device("meta"):
+            model = LlamaModel(cfg)
+        trainer = PipelinedTrainer(model, mesh, num_microbatches=m,
+                                   optimizer=default_optimizer(warmup=1))
+        rng = np.random.default_rng(7)
+        batch = {"input_ids": torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (b, s), dtype=np.int32)).cuda()}
+        state = trainer.init(torch.Generator(device="cuda").manual_seed(7),
+                             batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()  # this phase's main-path run starts here
+        losses, gnorms, step_ms = [], [], []
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, mt = trainer.step(state, batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(mt["loss"]))
+            gnorms.append(float(mt["grad_norm"]))
+        launches = {"flash_fwd_train": flash_attention.launches,
+                    "flash_bwd_dq": flash_attention.dq_launches,
+                    "flash_bwd_dkv": flash_attention.dkv_launches}
+        peak = torch.cuda.max_memory_allocated()
+
+        # the schedule itself at one stage against the bypass, from the
+        # same parameters: 4 microbatches of one row
+        group = mesh.get_group("pp")
+        run = gpipe(trainer.model.stage, 1, m, group)
+
+        def schedule(fn, params, x):
+            del fn  # the trainer's stage, as in run
+            return run(params, x.reshape((m, b // m) + x.shape[1:])) \
+                .reshape(x.shape)
+
+        params = list(state.params.values())
+        results = {}
+        for name, pipeline in (("bypass", None), ("gpipe", schedule)):
+            for p in params:
+                p.grad = None
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = trainer.loss(batch, pipeline=pipeline)
+            loss.backward()
+            torch.cuda.synchronize()
+            results[name] = {
+                "loss": float(loss.detach()),
+                "grads": [p.grad.clone() for p in params],
+                "ms": (time.perf_counter() - t0) * 1e3,
+                "launches": [flash_attention.launches,
+                             flash_attention.dq_launches,
+                             flash_attention.dkv_launches]}
+        for p in params:
+            p.grad = None
+        del trainer, model, state, mt, loss, params
+    bypass, sched = results["bypass"], results["gpipe"]
+    grad_err = float(global_norm([a - w for a, w in zip(
+        sched["grads"], bypass["grads"])]) / global_norm(bypass["grads"]))
+    sched_loss_err = abs(sched["loss"] - bypass["loss"]) / abs(bypass["loss"])
+    loss_err = [abs(a - r) / abs(r) for a, r in zip(losses, ref["losses"])]
+    gn_err = [abs(a - r) / abs(r)
+              for a, r in zip(gnorms, ref["grad_norms"])]
+    step = sorted(step_ms[1:])[len(step_ms[1:]) // 2] / 1e3  # median, warm
+    out = {"losses": losses, "grad_norms": gnorms, "step_ms": step_ms,
+           "ms_per_step": step * 1e3, "tokens_per_s": b * s / step,
+           "peak_memory_gib": peak / 2**30, "loss_rel_err": loss_err,
+           "grad_norm_rel_err": gn_err, "launches": launches,
+           "gpipe": {"microbatches": m, "loss_rel_err": sched_loss_err,
+                     "grad_rel_err": grad_err,
+                     "fwd_bwd_ms": sched["ms"], "bypass_fwd_bwd_ms":
+                     bypass["ms"], "launches": sched["launches"],
+                     "bypass_launches": bypass["launches"]}}
+    log(f"pp train: losses {losses}; grad norms {gnorms}")
+    log(f"pp train: rel err against phase 7 by step, loss "
+        f"{[f'{e:.1e}' for e in loss_err]} (rtol {RTOL_MESH_LOSS} at steps "
+        f"1-2, {RTOL_PP_LOSS} at each), grad norm "
+        f"{[f'{e:.1e}' for e in gn_err]} (rtol {RTOL_MESH_GNORM}, "
+        f"{RTOL_PP_GNORM}); kernel launches in {steps} steps "
+        f"{json.dumps(launches)}")
+    log(f"pp train on {smi}: {out['ms_per_step']:.1f} ms per step "
+        f"(phase 7: {ref['ms_per_step']:.1f}), {out['tokens_per_s']:.0f} "
+        f"tokens/s (phase 7: {ref['tokens_per_s']:.0f}), peak memory "
+        f"{out['peak_memory_gib']:.2f} GiB (phase 7: "
+        f"{ref['peak_memory_gib']:.2f})")
+    log(f"pp train: gpipe(stage, 1, {m}) against the bypass: loss rel err "
+        f"{sched_loss_err:.2e} (rtol {RTOL_GPIPE_LOSS}), gradients "
+        f"|g - g_bypass| / |g_bypass| {grad_err:.2e} (at most "
+        f"{RTOL_GPIPE_GRADS}); forward + backward {sched['ms']:.1f} ms "
+        f"(bypass {bypass['ms']:.1f}); launches K2/K3/K4 "
+        f"{sched['launches']} (bypass {bypass['launches']})")
+    assert all(math.isfinite(x) for x in losses + gnorms), "non-finite loss"
+    assert max(loss_err[:2]) <= RTOL_MESH_LOSS \
+        and max(gn_err[:2]) <= RTOL_MESH_GNORM, \
+        "steps 1-2 differ from phase 7's"
+    assert max(loss_err) <= RTOL_PP_LOSS, "losses differ from phase 7's"
+    assert max(gn_err) <= RTOL_PP_GNORM, "grad norms differ from phase 7's"
+    assert losses[-1] < losses[0], "the loss did not fall"
+    want = {"flash_fwd_train": 2 * cfg.num_layers * steps,  # + remat
+            "flash_bwd_dq": cfg.num_layers * steps,
+            "flash_bwd_dkv": cfg.num_layers * steps}
+    assert launches == want, f"launches {launches}, expected {want}"
+    assert sched_loss_err <= RTOL_GPIPE_LOSS, "gpipe's loss differs"
+    assert grad_err <= RTOL_GPIPE_GRADS, "gpipe's gradients differ"
+    assert sched["launches"] == [2 * cfg.num_layers * m, cfg.num_layers * m,
+                                 cfg.num_layers * m], "gpipe's launches"
     return out
 
 
@@ -1182,42 +1464,29 @@ def run_tp_engine(torch, flush_counts, ref, smi):
     """Phase tp_engine: phase 4's run through LLMEngine on
     create_mesh(MeshConfig(tp=1, fsdp=1)) over a world of one rank over
     NCCL; its greedy parity tokens held to phase 4's ``ref``."""
-    import tempfile
-
-    import torch.distributed as dist
-
     from ray_tpu_torch.ops.flash_attention import flash_attention
     from ray_tpu_torch.ops.paged_attention import paged_attention_decode
-    from ray_tpu_torch.parallel.distributed import init_process_group
     from ray_tpu_torch.parallel.mesh import MeshConfig, create_mesh
 
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        init_process_group("cuda", rank=0, world_size=1,
-                           store=dist.FileStore(os.path.join(tmp, "store"),
-                                                1), timeout_s=120)
-        try:
-            mesh = create_mesh(MeshConfig(tp=1, fsdp=1))
-            log(f"tp engine: world of 1 rank over {dist.get_backend()}, mesh "
-                f"{dict(zip(mesh.mesh_dim_names, mesh.shape))} in "
-                f"{time.perf_counter() - t0:.1f} s")
-            engine, eng = run_engine(torch, flush_counts, mesh=mesh)
-            counts = {"paged_decode": paged_attention_decode.launches,
-                      "flash_fwd_self": flash_attention.launches
-                      - flash_attention.segment_launches,
-                      "flash_fwd_ctx": flash_attention.segment_launches}
-            eng["steady"] = profile_decode(torch, engine)
-            eng["parity_tokens"] = greedy_parity(engine)
-            eng["collective_host_us"] = collective_host_us(
-                torch, engine.model.place.tp_group)
-            frames = engine._frames
-            eng["frames"] = {"frames": frames.frames, "bytes": frames.bytes,
-                             "host_s": frames.seconds}
-            eng["sharding"] = engine.stats()["sharding"]
-            engine.close()
-            del engine
-        finally:
-            dist.destroy_process_group()
+    with one_rank_world("tp engine"):
+        mesh = create_mesh(MeshConfig(tp=1, fsdp=1))
+        log(f"tp engine: mesh "
+            f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}")
+        engine, eng = run_engine(torch, flush_counts, mesh=mesh)
+        counts = {"paged_decode": paged_attention_decode.launches,
+                  "flash_fwd_self": flash_attention.launches
+                  - flash_attention.segment_launches,
+                  "flash_fwd_ctx": flash_attention.segment_launches}
+        eng["steady"] = profile_decode(torch, engine)
+        eng["parity_tokens"] = greedy_parity(engine)
+        eng["collective_host_us"] = collective_host_us(
+            torch, engine.model.place.tp_group)
+        frames = engine._frames
+        eng["frames"] = {"frames": frames.frames, "bytes": frames.bytes,
+                         "host_s": frames.seconds}
+        eng["sharding"] = engine.stats()["sharding"]
+        engine.close()
+        del engine
     steady, ref_steady = eng["steady"], ref["steady"]
     log(f"tp engine: TTFT ms {json.dumps(eng['ttft_ms'])}")
     log(f"tp engine: kernel launches {json.dumps(counts)}; frames "
@@ -2340,6 +2609,26 @@ def main() -> int:
                               run_mesh_trainer, torch, reset_train_counts,
                               train, smi)
     for kname, c in train["mesh"].pop("launches").items():
+        counts[kname] += c
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 7d. ring and Ulysses attention at one sp rank, Ulysses' launches
+    # added likewise
+    train["sp_attention"] = run_phase(
+        "sp_attention", DEADLINES_S["sp_attention"], run_sp_attention, torch,
+        reset_train_counts, smi)
+    for kname, c in train["sp_attention"].pop("launches").items():
+        counts[kname] += c
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 7e. phase 7 through the pipelined trainer at one stage, and the GPipe
+    # loop itself; the steps' launches added likewise
+    train["pp"] = run_phase("pp_trainer", DEADLINES_S["pp_trainer"],
+                            run_pp_trainer, torch, reset_train_counts, train,
+                            smi)
+    for kname, c in train["pp"].pop("launches").items():
         counts[kname] += c
     gc.collect()
     torch.cuda.empty_cache()

@@ -2,7 +2,9 @@
 Hopper (H100). It imports torch and never JAX or the ray_tpu package.
 It serves Llama and Mixtral-style models through the paged engine
 (``serve.llm``), on one device or a tensor-parallel mesh, and trains them
-(``parallel.train_lib.ShardedTrainer``) on one device or a mesh.
+(``parallel.train_lib.ShardedTrainer``) on one device or a mesh of the six
+JAX axes, sequence parallelism included, and in pipeline stages
+(``parallel.pp_train.PipelinedTrainer``).
 
 Kernels are hand-written CUDA C++ under ``ops/csrc/``, built with nvcc on
 first use (``ops/_build.py``); importing this package needs neither CUDA

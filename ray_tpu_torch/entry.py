@@ -1,21 +1,24 @@
-"""Multi-rank dry run of the mesh trainer and of the tensor-parallel
+"""Multi-rank dry run of the mesh trainers and of the tensor-parallel
 engine: the counterpart of the JAX package's ``dryrun_multichip``
 (``__graft_entry__.py``), on gloo CPU ranks.
 
     python -c "from ray_tpu_torch.entry import dryrun_multichip; \
-dryrun_multichip(4)"
+dryrun_multichip(8)"
 
-``train_on_mesh`` and ``serve_on_mesh`` are the bodies every rank runs:
-the first builds the mesh, the model and the ``ShardedTrainer`` and takes
-a step on each batch; the second serves runs of requests through a tp
-engine (rank 0 drives, the others follow). Tests run them through
-``parallel.distributed.spawn`` against the JAX trainer and engine.
+``train_on_mesh``, ``train_pipelined_on_mesh`` and ``serve_on_mesh`` are
+the bodies every rank runs: the first two build the mesh, the model and
+the ``ShardedTrainer`` (or the ``PipelinedTrainer``) and take a step on
+each batch; the third serves runs of requests through a tp engine (rank
+0 drives, the others follow). Tests run them through
+``parallel.distributed.spawn`` against the JAX trainers and engine.
 """
 
 from __future__ import annotations
 
+import functools
 import time
-from typing import Any, Dict, List, Mapping, Optional, Sequence
+from typing import (Any, Callable, Dict, List, Mapping, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -23,8 +26,11 @@ import torch.distributed as dist
 
 from .models.config import get_config
 from .models.llama import LlamaModel
+from .models.convert import params_from_flax
+from .ops.pipeline import stack_to_stages
 from .parallel.mesh import (MeshConfig, batch_shard, create_mesh,
                             mesh_sizes, serve_mesh)
+from .parallel.pp_train import PipelinedTrainer
 from .parallel.sharding import gather_state_dict
 from .parallel.train_lib import ShardedTrainer, default_optimizer
 from .serve.llm import EngineConfig, LLMEngine, SamplingParams
@@ -91,6 +97,129 @@ def train_on_mesh(model: str, mesh_config: Mapping[str, int],
         if torch.distributed.get_rank() == 0:
             out["params"] = {k: v.cpu().numpy() for k, v in full.items()}
     return out
+
+
+def train_pipelined_on_mesh(model: str, mesh_config: Mapping[str, int],
+                            batches: Sequence[Mapping[str, np.ndarray]], *,
+                            num_microbatches: int = 4,
+                            overrides: Optional[Mapping[str, Any]] = None,
+                            optimizer: Optional[Mapping[str, Any]] = None,
+                            flax_params: Optional[Mapping] = None,
+                            seed: int = 0) -> Dict[str, Any]:
+    """On each rank of an initialised world: the config ``model`` with
+    ``overrides`` on ``create_mesh(MeshConfig(**mesh_config))``, trained by
+    ``PipelinedTrainer`` with ``default_optimizer(**optimizer)`` from
+    ``flax_params`` (the JAX ``PipelinedTrainer``'s tree, layer leaves
+    ``[S, L/S, ...]``) or from ``init_params`` seeded with ``seed``: the
+    global loss of the first batch before any step (``eval_loss``), then
+    one step on each global batch. Returns the mesh's sizes, the rank's
+    stage, that loss, each step's loss and grad norm, and the rank's
+    parameters after the steps (its stage and the replicated ones)."""
+    cfg = get_config(model, **(overrides or {}))
+    mesh = create_mesh(MeshConfig(**mesh_config))
+    with torch.device("meta"):
+        net = LlamaModel(cfg)
+    trainer = PipelinedTrainer(net, mesh, num_microbatches=num_microbatches,
+                               optimizer=default_optimizer(
+                                   **(optimizer or {})))
+    generator, state_dict = None, None
+    if flax_params is None:
+        generator = torch.Generator(trainer.device).manual_seed(seed)
+    else:
+        full = params_from_flax(flax_params, cfg,
+                                num_stages=trainer.num_stages)
+        state_dict = stack_to_stages(full, trainer.num_stages)[trainer.stage]
+    state = trainer.init(generator, batches[0], state_dict)
+    out: Dict[str, Any] = {"mesh": mesh_sizes(mesh), "stage": trainer.stage,
+                           "eval_loss": float(trainer.eval_loss(state,
+                                                                batches[0]))}
+    losses, norms = [], []
+    for batch in batches:
+        state, metrics = trainer.step(state, batch)
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+    out.update(losses=losses, grad_norms=norms,
+               params={k: v.detach().cpu().numpy()
+                       for k, v in state.params.items()})
+    return out
+
+
+def in_turn(calls: Sequence[Tuple[Callable, Sequence, Mapping]]) -> List:
+    """On each rank of an initialised world: each ``(fn, args, kwargs)``
+    of ``calls`` in turn (several bodies in one world); their results."""
+    return [fn(*args, **kwargs) for fn, args, kwargs in calls]
+
+
+def _tanh_layers(params: Mapping[str, torch.Tensor],
+                 x: torch.Tensor) -> torch.Tensor:
+    """A stack of ``tanh(x @ w)`` layers, ``params`` named
+    ``layers.{l}.w``, applied in layer order."""
+    for name in sorted(params, key=lambda n: int(n.split(".")[1])):
+        x = torch.tanh(x @ params[name])
+    return x
+
+
+def ops_on_mesh(cases: Sequence[Mapping[str, Any]]) -> List[Dict[str, Any]]:
+    """On each rank of an initialised world: each case on
+    ``create_mesh(MeshConfig(**case["mesh"]))``, forward and backward, from
+    global numpy inputs. An attention case (``op`` "ring" or "ulysses":
+    ``q``, ``k``, ``v``, ``do``, ``causal``, optionally ``segment_ids``)
+    runs ``ring_attention`` or ``ulysses_attention`` over the sp group on
+    the rank's sequence blocks and returns its place on sp, the output
+    block and the gradients of ``sum(out * do)`` in q, k and v. A
+    pipeline case (``op`` "pipeline": stacked layers ``w`` [L, d, d],
+    ``x`` [B, d], ``microbatches``) runs ``pipeline_apply`` of
+    ``_tanh_layers`` over the pp group with the rank's stage of ``w``
+    and returns its stage, the output and the gradients of
+    ``sum(out ** 2)`` in its layers; at one stage also those of the
+    GPipe loop itself, ``gpipe(_tanh_layers, 1, M)`` (``schedule``), which
+    ``pipeline_apply`` bypasses there."""
+    from .ops.pipeline import gpipe, pipeline_apply
+    from .ops.ring_attention import ring_attention, ulysses_attention
+    from .parallel.mesh import pp_stage, seq_columns
+
+    results = []
+    for case in cases:
+        mesh = create_mesh(MeshConfig(**case["mesh"]))
+        if case["op"] == "pipeline":
+            stage, n_stages = pp_stage(mesh)
+            group, m = mesh.get_group("pp"), case["microbatches"]
+            x = torch.from_numpy(case["x"])
+            runs = {"": functools.partial(pipeline_apply, group=group,
+                                          num_microbatches=m)}
+            if n_stages == 1:
+                run = gpipe(_tanh_layers, 1, m, group)
+                runs["schedule_"] = lambda fn, params, x: run(
+                    params, x.reshape((m, -1) + x.shape[1:])).reshape(x.shape)
+            result = {"stage": stage}
+            for prefix, apply in runs.items():
+                w = torch.from_numpy(case["w"])
+                params = stack_to_stages({f"layers.{l}.w": w[l].clone()
+                                          .requires_grad_()
+                                          for l in range(w.shape[0])},
+                                         n_stages)[stage]
+                out = apply(_tanh_layers, params, x)
+                (out ** 2).sum().backward()
+                result.update({f"{prefix}out": out.detach().numpy(),
+                               f"{prefix}grads": {k: p.grad.numpy()
+                                                  for k, p in params.items()}})
+            results.append(result)
+            continue
+        fn = ring_attention if case["op"] == "ring" else ulysses_attention
+        q, k, v = (seq_columns(mesh, torch.from_numpy(case[n]))
+                   .clone().requires_grad_() for n in "qkv")
+        seg = case.get("segment_ids")
+        if seg is not None:
+            seg = seq_columns(mesh, torch.from_numpy(seg))
+        out = fn(q, k, v, group=mesh.get_group("sp"), causal=case["causal"],
+                 segment_ids=seg)
+        (out * seq_columns(mesh, torch.from_numpy(case["do"]))).sum() \
+            .backward()
+        results.append({"sp_rank": mesh.get_local_rank("sp"),
+                        "out": out.detach().numpy(),
+                        **{f"d{n}": t.grad.numpy()
+                           for n, t in zip("qkv", (q, k, v))}})
+    return results
 
 
 def _trace_routing(trainer, mesh, batch) -> Dict[str, Any]:
@@ -274,19 +403,22 @@ def serve_tier_line(n_devices: int, out: Mapping[str, Any]) -> str:
 
 
 def dryrun_multichip(n_devices: int, timeout_s: float = 300.0) -> None:
-    """One training step of the dense tier (debug-sharded on dp x fsdp x
-    tp) and of the MoE tier (tiny-moe on dp x fsdp x ep x tp) over
-    ``n_devices`` gloo CPU ranks, with the JAX function's mesh arithmetic
-    and sp fixed at 1, and the serve/tp tier (greedy decode of the tp=2
-    engine on 2 of the ranks equals one device's, on ``parity_prompts``);
-    prints one line per tier. The JAX function's pipeline and two-host
-    tiers are not run."""
+    """The JAX function's tiers over ``n_devices`` gloo CPU ranks, one
+    line each: one training step of the dense tier (debug-sharded on dp x
+    fsdp x sp x tp, ring attention over sp when sp > 1), of the MoE tier
+    (tiny-moe on dp x fsdp x ep x tp) and of the pipeline tier (tiny in 2
+    stages on pp 2 x dp, GPipe with 2 microbatches), with the JAX
+    function's mesh arithmetic; and the serve/tp tier (greedy decode of
+    the tp=2 engine on 2 of the ranks equals one device's, on
+    ``parity_prompts``). The JAX function's two-host tier is not run."""
     from .parallel.distributed import spawn
 
-    # tp must divide the model's heads and widths (powers of two); any
-    # leftover (odd) factor goes to dp, which only divides the batch
+    # tp/sp/fsdp must divide the model's hidden dims / sequence (powers
+    # of two); any leftover (odd) factor goes to dp, which only divides
+    # the batch
     tp = 2 if n_devices % 2 == 0 else 1
-    rem = n_devices // tp
+    sp = 2 if n_devices % 4 == 0 else 1  # exercises ring attention
+    rem = n_devices // (tp * sp)
     fsdp = 1
     while rem % 2 == 0 and fsdp < 4:
         fsdp *= 2
@@ -295,11 +427,13 @@ def dryrun_multichip(n_devices: int, timeout_s: float = 300.0) -> None:
     rng = np.random.default_rng(0)
     cfg = get_config("debug-sharded")
     batch = {"input_ids": rng.integers(0, cfg.vocab_size,
-                                       (2 * dp * fsdp, 32), dtype=np.int32)}
-    mesh = dict(dp=dp, fsdp=fsdp, sp=1, tp=tp)
+                                       (2 * dp * fsdp, 32 * sp),
+                                       dtype=np.int32)}
+    mesh = dict(dp=dp, fsdp=fsdp, sp=sp, tp=tp)
     out = spawn(train_on_mesh, n_devices, "cpu", timeout_s,
                 args=("debug-sharded", mesh, [batch]),
-                kwargs=dict(optimizer=dict(lr=1e-3)))[0]
+                kwargs=dict(optimizer=dict(lr=1e-3), overrides=dict(
+                    attention_impl="ring" if sp > 1 else None)))[0]
     loss = out["losses"][0]
     assert np.isfinite(loss), f"non-finite loss {loss}"
     print(f"dryrun_multichip({n_devices}): mesh={out['mesh']} "
@@ -327,11 +461,30 @@ def dryrun_multichip(n_devices: int, timeout_s: float = 300.0) -> None:
     assert np.isfinite(moe_loss), f"non-finite MoE loss {moe_loss}"
     print(f"dryrun_multichip({n_devices}) MoE/ep: mesh={out['mesh']} "
           f"loss={moe_loss:.4f}")
-    # tensor-parallel serving: greedy tokens of the tp engine equal one
-    # device's (the JAX tier's contract)
+
     if n_devices % 2 == 0:
+        # pipeline parallelism: tiny's 2 layers in 2 stages over pp, the
+        # GPipe schedule of ring shifts
+        pp, pp_dp = 2, n_devices // 2
+        pp_cfg = get_config("tiny", remat=False)
+        pp_batch = {"input_ids": rng.integers(
+            0, pp_cfg.vocab_size, (2 * pp_dp, 32), dtype=np.int32)}
+        out = spawn(train_pipelined_on_mesh, n_devices, "cpu", timeout_s,
+                    args=("tiny", dict(pp=pp, dp=pp_dp, fsdp=1),
+                          [pp_batch]),
+                    kwargs=dict(num_microbatches=2, seed=2,
+                                overrides=dict(remat=False),
+                                optimizer=dict(lr=1e-3)))[0]
+        pp_loss = out["losses"][0]
+        assert np.isfinite(pp_loss), f"non-finite PP loss {pp_loss}"
+        print(f"dryrun_multichip({n_devices}) PP: mesh={out['mesh']} "
+              f"loss={pp_loss:.4f}")
+
+        # tensor-parallel serving: greedy tokens of the tp engine equal
+        # one device's (the JAX tier's contract)
         out = spawn(serve_on_mesh, 2, "cpu", timeout_s,
                     args=([serve_tier_run()],))[0][0]
         print(serve_tier_line(n_devices, out))
-    print(f"dryrun_multichip({n_devices}): the pipeline (pp) and two-host "
-          f"tiers are not run: they wait for ROADMAP queue 1 items 8-9")
+    print(f"dryrun_multichip({n_devices}): the two-host tier is not run: "
+          f"it waits for the runtime's slice topology (ROADMAP queue 1 "
+          f"item 5)")

@@ -8,13 +8,16 @@ The Flax tree is the one the JAX package's engine builds
 which transpose into ``nn.Linear.weight`` ``[out, in]``. MoE layers keep
 ``moe/{router, experts_gate_up, experts_down}`` in their JAX layouts
 (``[h, E]``, ``[E, h, 2f]``, ``[E, f, h]``), which ``MoEMLP`` reads as
-they are. The tree comes as nested dicts of numpy arrays, so no JAX is
-needed here.
+they are. The JAX ``PipelinedTrainer``'s tree stacks the layer leaves
+``[S, L/S, ...]`` (``num_stages`` S); ``ops.pipeline.stack_to_stages``
+then gives each pp rank its stage of the state dict, and
+``flax_from_params`` goes back. The tree comes as nested dicts of numpy
+arrays, so no JAX is needed here.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -60,14 +63,22 @@ def _leaf(tree: Mapping, path) -> np.ndarray:
     return tree
 
 
-def params_from_flax(tree: Mapping, cfg: LlamaConfig) -> Dict[str, torch.Tensor]:
-    """Flax param tree (nested dicts of numpy arrays) -> state dict."""
+def params_from_flax(tree: Mapping, cfg: LlamaConfig,
+                     num_stages: Optional[int] = None
+                     ) -> Dict[str, torch.Tensor]:
+    """Flax param tree (nested dicts of numpy arrays) -> state dict. With
+    ``num_stages`` the layer leaves are staged, ``[S, L/S, ...]``."""
     layers = tree["layers"]["layer"]
     sd = {"embed": _tensor(tree["embed"]),
           "final_norm.scale": _tensor(tree["final_norm"]["scale"]),
           "lm_head.weight": _tensor(tree["lm_head"]["kernel"]).T.contiguous()}
     for path, (name, transpose) in layer_leaves(cfg).items():
         stacked = _tensor(_leaf(layers, path))
+        if num_stages is not None:
+            if stacked.shape[0] != num_stages:
+                raise ValueError(f"{'/'.join(path)} has {stacked.shape[0]} "
+                                 f"stages, not {num_stages}")
+            stacked = stacked.flatten(0, 1)
         if stacked.shape[0] != cfg.num_layers:
             raise ValueError(f"{'/'.join(path)} stacks {stacked.shape[0]} "
                              f"layers, config has {cfg.num_layers}")
@@ -75,6 +86,31 @@ def params_from_flax(tree: Mapping, cfg: LlamaConfig) -> Dict[str, torch.Tensor]
             w = stacked[i]
             sd[f"layers.{i}.{name}"] = w.T.contiguous() if transpose else w
     return sd
+
+
+def flax_from_params(sd: Mapping[str, torch.Tensor], cfg: LlamaConfig,
+                     num_stages: Optional[int] = None) -> Dict:
+    """The inverse of ``params_from_flax``: a full state dict as the JAX
+    model's Flax tree of numpy arrays (layers stacked ``[L, ...]``, or
+    ``[S, L/S, ...]`` with ``num_stages``; dense kernels ``[in, out]``)."""
+    def leaf(t, transpose):
+        t = t.detach().cpu()
+        return (t.T if transpose else t).contiguous().numpy()
+
+    tree = {"embed": leaf(sd["embed"], False),
+            "final_norm": {"scale": leaf(sd["final_norm.scale"], False)},
+            "lm_head": {"kernel": leaf(sd["lm_head.weight"], True)},
+            "layers": {"layer": {}}}
+    for path, (name, transpose) in layer_leaves(cfg).items():
+        node = tree["layers"]["layer"]
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        stacked = np.stack([leaf(sd[f"layers.{i}.{name}"], transpose)
+                            for i in range(cfg.num_layers)])
+        if num_stages is not None:
+            stacked = stacked.reshape((num_stages, -1) + stacked.shape[1:])
+        node[path[-1]] = stacked
+    return tree
 
 
 def init_params(cfg: LlamaConfig, generator: torch.Generator, device,

@@ -33,6 +33,10 @@ of ``parallel/mesh.py``) the layers hold the rank's part of each weight
 E/ep experts of F/tp each, the embedding and lm_head V/tp rows of the
 vocabulary; the differentiable collectives of ``ops/collectives.py``
 join the parts, and the loss is cross-entropy over the split vocabulary.
+With sp > 1 a rank holds a block of the sequence: its positions are the
+global ones, and attention is ring or Ulysses over the sp group
+(``cfg.attention_impl``). ``LayerStack`` holds one pipeline stage's
+layers under the full model's names (``parallel/pp_train.py``).
 A fused weight keeps its layout on each rank: the rank's q, k and v rows
 (gate and up columns), fused again in that order. Serving on a mesh (the
 tp engine) hands each rank a ``PagedCache`` whose pool holds its Hkv/tp
@@ -60,7 +64,7 @@ from ..ops.collectives import (all_reduce_max, all_reduce_sum, copy_to,
                                gather_from, reduce_from)
 from ..ops.paged_attention import (paged_attention_decode,
                                    paged_prefill_attention, paged_write)
-from ..parallel.mesh import mesh_sizes, refuse_unported_axes
+from ..parallel.mesh import mesh_sizes
 from .config import LlamaConfig, torch_dtype
 
 
@@ -109,16 +113,20 @@ class PagedCache:
 
 @dataclasses.dataclass(frozen=True)
 class MeshPlace:
-    """A rank's place on a mesh as the layers see it: the sizes of tp, ep
-    and the batch axes (dp x fsdp), the rank's index on tp and ep, and the
-    process groups of those axes (None where only the layout is needed,
-    as in ``parallel/sharding.py``'s pure functions)."""
+    """A rank's place on a mesh as the layers see it: the sizes of tp, ep,
+    sp and the batch axes (``data``: dp x fsdp), the rank's index on tp,
+    ep and sp, and the process groups of tp and ep (None where only the
+    layout is needed, as in ``parallel/sharding.py``'s pure functions)
+    and of the axes that split the tokens (``data_groups``: dp, fsdp and
+    sp)."""
 
     tp: int = 1
     tp_rank: int = 0
     ep: int = 1
     ep_rank: int = 0
     data: int = 1
+    sp: int = 1
+    sp_rank: int = 0
     tp_group: Any = None
     ep_group: Any = None
     data_groups: Tuple = ()
@@ -128,20 +136,27 @@ class MeshPlace:
         size = mesh_sizes(mesh)
         return cls(tp=size["tp"], tp_rank=mesh.get_local_rank("tp"),
                    ep=size["ep"], ep_rank=mesh.get_local_rank("ep"),
-                   data=size["dp"] * size["fsdp"],
+                   data=size["dp"] * size["fsdp"], sp=size["sp"],
+                   sp_rank=mesh.get_local_rank("sp"),
                    tp_group=mesh.get_group("tp"),
                    ep_group=mesh.get_group("ep"),
-                   data_groups=(mesh.get_group("dp"),
-                                mesh.get_group("fsdp")))
+                   data_groups=(mesh.get_group("dp"), mesh.get_group("fsdp"),
+                                mesh.get_group("sp")))
 
 
 def check_mesh(cfg: LlamaConfig, sizes: Mapping[str, int]) -> None:
-    """Refuse a mesh the model cannot be split over: sp or pp above 1
-    (ROADMAP queue 1 item 9), a tp that does not divide the kv heads (a
-    rank holds whole kv heads and the q heads that read them), the MLP's
-    width or the vocabulary, an ep that does not divide the experts."""
-    refuse_unported_axes(sizes)
+    """Refuse a mesh the model cannot be split over: a tp that does not
+    divide the kv heads (a rank holds whole kv heads and the q heads that
+    read them), the MLP's width or the vocabulary, an ep that does not
+    divide the experts, sp above 1 with an attention that is not ring or
+    Ulysses (a rank's dense attention would see its own block of the
+    sequence only; JAX's GSPMD gathers the sequence for it)."""
     tp, ep = sizes.get("tp", 1), sizes.get("ep", 1)
+    if sizes.get("sp", 1) > 1 and cfg.attention_impl not in ("ring",
+                                                             "ulysses"):
+        raise ValueError(
+            f"sp={sizes['sp']} splits the sequence: attention_impl must be "
+            f"'ring' or 'ulysses', got {cfg.attention_impl!r}")
     if cfg.num_kv_heads % tp:
         raise ValueError(
             f"tp={tp} does not divide num_kv_heads={cfg.num_kv_heads}: each "
@@ -155,11 +170,21 @@ def check_mesh(cfg: LlamaConfig, sizes: Mapping[str, int]) -> None:
                          f"{cfg.num_experts}")
 
 
-def check_moe_groups(cfg: LlamaConfig, tokens: int, data: int) -> None:
+def check_moe_groups(cfg: LlamaConfig, tokens: int, data: int,
+                     sp: int = 1, seq: int = 0) -> None:
     """On a batch split over ``data`` > 1 ranks, a rank's ``tokens`` must
-    be a multiple of ``moe_group_size``: then its routing groups are the
-    groups one device forms over the global batch, with the same capacity
-    and drops. Any other split routes other groups."""
+    be a multiple of ``moe_group_size``, and on a sequence split over
+    ``sp`` > 1 ranks its block of ``seq`` positions: then its routing
+    groups are the groups one device forms over the global [B, S] batch,
+    with the same capacity and drops. Any other split routes other
+    groups."""
+    if sp > 1 and seq % cfg.moe_group_size:
+        raise ValueError(
+            f"a rank's sequence block of {seq} positions is not a multiple "
+            f"of moe_group_size={cfg.moe_group_size}: its routing groups "
+            f"would differ from the groups of the global batch over sp = "
+            f"{sp} ranks (other tokens per group, other capacity and "
+            f"drops)")
     if data > 1 and tokens % cfg.moe_group_size:
         raise ValueError(
             f"a rank's {tokens} tokens are not a multiple of moe_group_size="
@@ -305,7 +330,8 @@ class MoEMLP(nn.Module):
     their width: the partial products are summed over tp and the experts'
     outputs gathered over ep before the combine. The router term's token
     counts and probability sums are summed over the batch axes first, so
-    that it is the term of the global batch."""
+    that it is the term of the global batch (every rank of dp, fsdp and
+    sp)."""
 
     def __init__(self, cfg: LlamaConfig, dtype: torch.dtype,
                  param_dtype: torch.dtype, place: Optional[MeshPlace] = None):
@@ -335,7 +361,7 @@ class MoEMLP(nn.Module):
         b, s, h = x.shape
         T = b * s
         if self.place:
-            check_moe_groups(cfg, T, self.place.data)
+            check_moe_groups(cfg, T, self.place.data, self.place.sp, s)
         g = min(cfg.moe_group_size, T)
         pad = (-T) % g
         rows = torch.cat([x.reshape(T, h).to(dtype),
@@ -389,7 +415,7 @@ class MoEMLP(nn.Module):
             counts = all_reduce_sum(counts, place.data_groups)
             prob_sum = reduce_from(probs.reshape(G * g, n_exp)[:T].sum(0),
                                    place.data_groups)
-            T = T * place.data
+            T = T * place.data * place.sp
             frac_probs = prob_sum / T
         else:
             frac_probs = probs.reshape(G * g, n_exp)[:T].mean(0)
@@ -484,6 +510,32 @@ def remat_layer(layer: DecoderLayer, policy: str, x, positions,
     raise ValueError(f"unknown remat policy {policy!r}")
 
 
+class LayerStack(nn.ModuleDict):
+    """One pipeline stage's decoder layers, the JAX ``LayerStack``:
+    layers ``first`` to ``first + count - 1`` of the full model, under its
+    names (``str(l)``, so the parameters are ``layers.{l}.*`` in a module
+    that holds the stack as ``layers``), run in order with the model's
+    remat policy."""
+
+    def __init__(self, cfg: LlamaConfig, dtype: torch.dtype,
+                 param_dtype: torch.dtype, first: int, count: int):
+        super().__init__({str(first + j): DecoderLayer(cfg, dtype,
+                                                       param_dtype)
+                          for j in range(count)})
+        self.cfg = cfg
+
+    def forward(self, x: torch.Tensor,
+                positions: torch.Tensor) -> torch.Tensor:
+        remat = self.cfg.remat and torch.is_grad_enabled()
+        for layer in self.values():
+            if remat:
+                x, _ = remat_layer(layer, self.cfg.remat_policy, x,
+                                   positions)
+            else:
+                x, _ = layer(x, positions)
+        return x
+
+
 def _chunk_nll(x: torch.Tensor, targets: torch.Tensor,
                head: torch.Tensor) -> torch.Tensor:
     logits = F.linear(x, head).float()
@@ -569,7 +621,10 @@ class LlamaModel(nn.Module):
         ``return_aux`` also the router terms summed over the layers (a
         float32 scalar, zero for a dense model)."""
         if positions is None:
-            positions = torch.arange(input_ids.shape[1],
+            # on an sp shard, the global positions of the rank's block
+            s = input_ids.shape[1]
+            first = self.place.sp_rank * s if self.place else 0
+            positions = torch.arange(first, first + s,
                                      device=input_ids.device)
             positions = positions.expand(input_ids.shape)
         x = self._embed(input_ids).to(self.dtype)

@@ -67,12 +67,30 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     impl: None or "flash" (``flash_attention``: kernels K2-K4 on CUDA
     tensors, their plain versions on CPU tensors) | "reference"
     (``reference_attention``) | "ring" | "ulysses" (sequence-parallel
-    attention, not ported: ROADMAP queue 1 item 9).
+    attention over the ``sp`` group of the ambient mesh,
+    ``parallel.mesh.current_mesh()``, on the rank's sequence shards;
+    with no mesh, or sp == 1, a warning and dense attention, as in JAX).
     """
     if impl in ("ring", "ulysses"):
-        raise NotImplementedError(
-            f"attention impl={impl!r} (sequence-parallel attention) is not "
-            f"ported yet: ROADMAP queue 1 item 9")
+        from ..parallel.mesh import current_mesh, mesh_sizes
+
+        mesh = current_mesh()
+        if mesh is not None and mesh_sizes(mesh).get("sp", 1) > 1:
+            if isinstance(segment_ids, tuple):
+                raise NotImplementedError(
+                    "sequence-parallel attention does not take a "
+                    "(q_seg, kv_seg) pair (kv-cache decode is dense)")
+            from .ring_attention import (ring_attention_sharded,
+                                         ulysses_attention_sharded)
+            fn = (ring_attention_sharded if impl == "ring"
+                  else ulysses_attention_sharded)
+            return fn(q, k, v, mesh, causal=causal, segment_ids=segment_ids,
+                      scale=scale)
+        _warn_dense_fallback(
+            f"impl={impl!r} requested but no active mesh with sp>1 "
+            "(wrap the call in ray_tpu_torch.parallel.mesh.active_mesh); "
+            "running dense attention")
+        impl = None
     if impl in (None, "flash"):
         from .flash_attention import flash_attention
 
@@ -82,3 +100,15 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return reference_attention(q, k, v, causal=causal,
                                    segment_ids=segment_ids, scale=scale)
     raise ValueError(f"unknown attention impl {impl!r}")
+
+
+_warned = set()
+
+
+def _warn_dense_fallback(reason: str) -> None:
+    """Warn once per reason, as the JAX package's ``_warn_flash_fallback``."""
+    if reason not in _warned:
+        _warned.add(reason)
+        import warnings
+
+        warnings.warn(f"falling back to dense attention: {reason}")

@@ -5,16 +5,21 @@ A mesh is a ``DeviceMesh`` over the initialised world (one process per
 rank, ``parallel.distributed.init_process_group``) whose six dims carry
 the JAX names in the JAX order, outer to inner:
 
-  pp    pipeline parallel (not ported: ROADMAP queue 1 item 9)
+  pp    pipeline parallel: decoder layers split into stages
+        (``parallel/pp_train.py``, ``ops/pipeline.py``)
   dp    data parallel: parameters replicated
   fsdp  data parallel with parameters sharded (FSDP2's ``fully_shard``)
-  sp    sequence parallel (not ported: ROADMAP queue 1 item 9)
+  sp    sequence parallel: each rank holds a block of the sequence
+        (ring or Ulysses attention, ``ops/ring_attention.py``)
   ep    expert parallel: the MoE experts split over its ranks
   tp    tensor parallel: heads, the MLP's width and the vocabulary split
 
 Rank order is row-major over the dims, so tp ranks are neighbours, as
-JAX's device order puts tp on neighbouring chips. A batch is split over
-``(dp, fsdp)`` only: ep and tp ranks hold the same tokens.
+JAX's device order puts tp on neighbouring chips. A batch's rows are
+split over ``(dp, fsdp)`` and its sequence over ``sp`` (JAX's
+``activation_spec(seq_sharded=True)``): ep and tp ranks hold the same
+tokens. ``ShardedTrainer`` replicates its work over ``pp``;
+``PipelinedTrainer`` gives each pp rank a stage (``pp_stage``).
 
 A serve mesh (``serve_mesh``) is tp only: every other axis is 1, as in
 the JAX engine's ``resolve_serve_mesh``.
@@ -25,7 +30,7 @@ from __future__ import annotations
 import math
 import threading
 from dataclasses import dataclass
-from typing import Dict, List, Mapping, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
@@ -66,29 +71,15 @@ class MeshConfig:
         return sizes
 
 
-def refuse_unported_axes(sizes: Mapping[str, int]) -> None:
-    """sp > 1 (ring/Ulysses attention) and pp > 1 (gpipe) are not
-    ported."""
-    for axis, what in (("sp", "sequence parallelism (ring/Ulysses "
-                        "attention)"), ("pp", "pipeline parallelism "
-                                        "(gpipe)")):
-        if sizes.get(axis, 1) > 1:
-            raise NotImplementedError(
-                f"{axis}={sizes[axis]}: {what} is not ported yet: ROADMAP "
-                f"queue 1 item 9")
-
-
 def create_mesh(config: Optional[MeshConfig] = None,
                 device_type: Optional[str] = None) -> DeviceMesh:
     """The mesh over every rank of the initialised world, its dims named
     AXES. ``device_type`` defaults to the world's ("cuda" over NCCL)."""
     config = config or MeshConfig()
-    refuse_unported_axes({"sp": config.sp, "pp": config.pp})
     if not dist.is_initialized():
         raise RuntimeError("create_mesh needs an initialised process group "
                            "(parallel.distributed.init_process_group)")
     sizes = config.resolved(dist.get_world_size())
-    refuse_unported_axes(sizes)
     if device_type is None:
         device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
     return init_device_mesh(device_type, tuple(sizes[a] for a in AXES),
@@ -162,18 +153,50 @@ def current_mesh() -> Optional[DeviceMesh]:
 
 
 # ---------------------------------------------------------------------------
-# The batch split: JAX's batch_spec, P(("dp", "fsdp"))
+# The batch split: JAX's activation_spec(seq_sharded=True),
+# P(("dp", "fsdp"), "sp")
 # ---------------------------------------------------------------------------
-def batch_shard(mesh: DeviceMesh, x):
+def _place(mesh, axes) -> Tuple[int, int]:
+    """The rank's index and the count of parts over ``axes``, outer
+    first."""
+    idx, n = 0, 1
+    for axis in axes:
+        size = mesh.size(AXES.index(axis))
+        idx, n = idx * size + mesh.get_local_rank(axis), n * size
+    return idx, n
+
+
+def batch_rows(mesh: DeviceMesh, x):
     """This rank's rows of a global batch array or tensor ``x`` [B, ...]:
     of ``n`` = dp x fsdp equal parts along dim 0, the part at the rank's
     place on ``(dp, fsdp)``, dp the outer axis."""
-    idx, n = 0, 1
-    for axis in BATCH_AXES:
-        size = mesh.size(AXES.index(axis))
-        idx, n = idx * size + mesh.get_local_rank(axis), n * size
+    idx, n = _place(mesh, BATCH_AXES)
     if x.shape[0] % n:
         raise ValueError(f"batch of {x.shape[0]} rows does not split over "
                          f"dp x fsdp = {n} ranks")
     rows = x.shape[0] // n
     return x[idx * rows:(idx + 1) * rows]
+
+
+def seq_columns(mesh: DeviceMesh, x):
+    """This rank's block of the sequence (dim 1) of ``x`` [B, S, ...]: of
+    ``sp`` equal parts, the one at the rank's place on sp."""
+    idx, n = _place(mesh, ("sp",))
+    if x.shape[1] % n:
+        raise ValueError(f"sequence of {x.shape[1]} positions does not "
+                         f"split over sp = {n} ranks")
+    cols = x.shape[1] // n
+    return x[:, idx * cols:(idx + 1) * cols]
+
+
+def batch_shard(mesh: DeviceMesh, x):
+    """This rank's part of a global batch ``x`` [B, S, ...]: its rows over
+    ``(dp, fsdp)`` (``batch_rows``) and its sequence block over ``sp``
+    (``seq_columns``)."""
+    return seq_columns(mesh, batch_rows(mesh, x))
+
+
+def pp_stage(mesh: DeviceMesh) -> Tuple[int, int]:
+    """This rank's pipeline stage and the number of stages: its place on
+    ``pp`` and the axis's size."""
+    return mesh.get_local_rank("pp"), mesh.size(AXES.index("pp"))

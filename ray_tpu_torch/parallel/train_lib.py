@@ -15,11 +15,15 @@ Without a mesh the trainer takes one device. On a mesh
 hold the rank's tp and ep parts of the weights (``models/llama.py``), and
 FSDP2's ``fully_shard`` over the ``(dp, fsdp)`` sub-mesh shards each
 ``DecoderLayer`` and the root (HSDP when dp > 1: replicated over dp,
-sharded over fsdp). Each rank takes its rows of the global batch; the
-loss it differentiates is chosen so that FSDP's average over
-``(dp, fsdp)`` is the gradient of the global loss. AdamW runs on each
-rank's shards, so the moments cost 1/fsdp a rank; the global norm sums
-each tensor's squares over exactly the axes that split it.
+sharded over fsdp). Each rank takes its rows of the global batch and,
+with sp > 1, its block of the sequence (the targets are cut from the
+global rows, so they cross into the next block); the loss it
+differentiates is chosen so that FSDP's average over ``(dp, fsdp)``,
+summed over sp (the parameters are replicated over sp, as JAX's rules
+map no parameter axis to it), is the gradient of the global loss. Over
+pp the work is replicated. AdamW runs on each rank's shards, so the
+moments cost 1/fsdp a rank; the global norm sums each tensor's squares
+over exactly the axes that split it.
 
 Parameters live in the model, in its ``param_dtype``; the ``TrainState``
 holds them by name, with the optimizer's moments, and a step updates them
@@ -35,12 +39,14 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch.distributed.fsdp import fully_shard
 
 from ..models.convert import init_params, load_params
 from ..ops.collectives import all_reduce_sum
 from ..ops.paged_attention import check_kernel_head_dim
-from .mesh import BATCH_AXES, active_mesh, batch_shard, mesh_sizes
+from .mesh import (BATCH_AXES, active_mesh, batch_rows, mesh_sizes,
+                   seq_columns)
 from .sharding import shard_state_dict, split_dims
 
 
@@ -153,6 +159,17 @@ def sum_of_squares(tensors: List[torch.Tensor]) -> torch.Tensor:
     return torch.stack([t.square().sum() for t in tensors]).sum()
 
 
+def sum_over(tensors: List[torch.Tensor], group) -> None:
+    """Sum each of ``tensors`` over ``group``, in place, in one
+    all-reduce of a flat buffer (nothing to do over one rank)."""
+    if dist.get_world_size(group) == 1:
+        return
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, group=group)
+    for t, part in zip(tensors, flat.split([t.numel() for t in tensors])):
+        t.copy_(part.view_as(t))
+
+
 def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
     """optax's global_norm, the root of the summed squares."""
     return sum_of_squares(tensors).sqrt()
@@ -187,14 +204,17 @@ class ShardedTrainer:
     ``loss_mask``) or the ``input_ids`` alone.
 
     On a mesh every rank runs the same calls with the same global batch,
-    of which it takes its rows over ``(dp, fsdp)``; ``step`` and
-    ``eval_loss`` return the global loss and grad norm on every rank. The
-    model is rebuilt for the mesh if it was not built on it
-    (``LlamaModel(..., mesh=)``): the trained model is ``trainer.model``.
-    A ``loss_fn`` on a mesh gets the rank's batch and returns, on every
-    rank, the global loss with gradients that FSDP's average over the
-    batch axes turns into the global loss's (as ``_mesh_loss`` does).
-    ``device`` defaults to "cuda", or to the mesh's device.
+    of which it takes its rows over ``(dp, fsdp)`` and its sequence block
+    over sp; ``step`` and ``eval_loss`` return the global loss and grad
+    norm on every rank. The model is rebuilt for the mesh if it was not
+    built on it (``LlamaModel(..., mesh=)``): the trained model is
+    ``trainer.model``. A ``loss_fn`` on a mesh gets the rank's batch,
+    which also holds ``targets`` (the global rows shifted left) and
+    ``weights`` (float32: the shifted ``loss_mask``, or ones, and zero at
+    each row's global last position), and returns, on every rank, the
+    global loss with gradients that FSDP's average over the batch axes,
+    summed over sp, turns into the global loss's (as ``_mesh_loss``
+    does). ``device`` defaults to "cuda", or to the mesh's device.
     """
 
     def __init__(self, model: torch.nn.Module, mesh=None,
@@ -221,8 +241,12 @@ class ShardedTrainer:
                 "ShardedTrainer device is 'cuda' but no CUDA device is "
                 "available (pass device='cpu' to run on the CPU)")
         cfg = getattr(model, "cfg", None)
-        if cfg is not None and cfg.attention_impl in (None, "flash"):
-            # the training path runs K2 forward and K3/K4 backward
+        ring = (cfg is not None and cfg.attention_impl == "ring"
+                and mesh is not None and mesh_sizes(mesh)["sp"] > 1)
+        if cfg is not None and cfg.attention_impl != "reference" \
+                and not ring:
+            # the training path runs K2 forward and K3/K4 backward (with
+            # Ulysses, and with ring or Ulysses on no sp mesh, too)
             check_kernel_head_dim(cfg.head_dim_, model.dtype, self.device,
                                   decode=False, owner="ShardedTrainer")
         self.model = model
@@ -251,26 +275,19 @@ class ShardedTrainer:
 
     @staticmethod
     def _mesh_loss(model, batch) -> torch.Tensor:
-        """``_default_loss`` of the global batch, from a rank's rows: the
-        masked mean over every rank's positions (the mask's count summed
-        over the batch axes) plus the router terms, which the layers
-        compute from the global batch's fractions. Its value is the global
-        loss on every rank; its gradient is the rank's share times the
-        number of batch ranks, since FSDP averages over them: the nll's
-        sum over the rank's positions over the global count, and the
-        router terms' dependence on the rank's own tokens."""
-        input_ids = batch["input_ids"]
-        targets = torch.cat([input_ids[:, 1:], input_ids[:, :1]], dim=1)
-        mask = batch.get("loss_mask")
-        nll, aux = model(input_ids, targets=targets, return_aux=True)
-        nll = nll[:, :-1]
-        if mask is None:
-            total = nll.sum()
-            count = torch.full((), nll.numel(), dtype=nll.dtype,
-                               device=nll.device)
-        else:
-            mask = mask[:, 1:].to(nll.dtype)
-            total, count = (nll * mask).sum(), mask.sum()
+        """``_default_loss`` of the global batch, from a rank's part: the
+        weighted mean over every rank's positions (the weights' count
+        summed over dp, fsdp and sp) plus the router terms, which the
+        layers compute from the global batch's fractions. Its value is the
+        global loss on every rank; its gradient is the rank's share times
+        the number of batch ranks, since FSDP averages over them (and the
+        trainer sums over sp): the nll's weighted sum over the rank's
+        positions over the global count, and the router terms' dependence
+        on the rank's own tokens."""
+        nll, aux = model(batch["input_ids"], targets=batch["targets"],
+                         return_aux=True)
+        weights = batch["weights"]
+        total, count = (nll * weights).sum(), weights.sum()
         groups = model.place.data_groups
         count = torch.clamp(all_reduce_sum(count, groups), min=1)
         loss = all_reduce_sum(total, groups) / count + aux.detach()
@@ -278,13 +295,26 @@ class ShardedTrainer:
         return loss + (share - share.detach())
 
     def _batch(self, batch) -> Dict[str, torch.Tensor]:
+        """The batch on the device; on a mesh the rank's part of it, with
+        ``targets`` and ``weights`` made from the rank's whole rows before
+        its sequence block is cut (the dropped final position is the
+        global last one, on the last sp rank only)."""
         if not isinstance(batch, Mapping):
             batch = {"input_ids": batch}
         out = {k: torch.as_tensor(v).to(self.device, non_blocking=True)
                for k, v in batch.items()}
-        if self.mesh is not None:
-            out = {k: batch_shard(self.mesh, v) for k, v in out.items()}
-        return out
+        if self.mesh is None:
+            return out
+        out = {k: batch_rows(self.mesh, v) for k, v in out.items()}
+        ids = out["input_ids"]
+        out["targets"] = torch.cat([ids[:, 1:], ids[:, :1]], dim=1)
+        mask = out.get("loss_mask")
+        weights = (torch.ones(ids.shape, dtype=torch.float32,
+                              device=ids.device) if mask is None
+                   else torch.cat([mask[:, 1:], mask[:, :1]], dim=1).float())
+        weights[:, -1] = 0.0
+        out["weights"] = weights
+        return {k: seq_columns(self.mesh, v) for k, v in out.items()}
 
     # -------------------------------------------------------------- init
     def init(self, generator: Optional[torch.Generator], example_batch,
@@ -350,6 +380,8 @@ class ShardedTrainer:
             grads = [_local(p.grad) if p.grad is not None
                      else torch.zeros_like(lp)
                      for p, lp in zip(state.params.values(), params)]
+            if self.mesh is not None:  # parameters replicated over sp
+                sum_over(grads, self.mesh.get_group("sp"))
         g_norm = None if self.mesh is None else self._global_norm(names,
                                                                   grads)
         g_norm = self.tx.update(params, grads, state.opt_state, g_norm)

@@ -280,12 +280,18 @@ def test_shard_then_merge_gives_the_full_state(name, mesh):
 
 
 def test_unported_axes_and_unsplittable_models_are_refused():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        port_mesh.create_mesh(port_mesh.MeshConfig(sp=2))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        port_mesh.create_mesh(port_mesh.MeshConfig(pp=2))
-    with pytest.raises(NotImplementedError, match="item 9"):
+    """sp and pp, once refused, are taken: create_mesh goes on to ask for
+    a process group (tests/test_torch_sp_pp.py builds sp and pp meshes on
+    4 ranks), and a model splits over them when its attention is ring or
+    Ulysses (its dense attention would see a rank's sequence block only).
+    Models that do not split are refused."""
+    for axis in ("sp", "pp"):
+        with pytest.raises(RuntimeError, match="initialised process group"):
+            port_mesh.create_mesh(port_mesh.MeshConfig(**{axis: 2}))
+    with pytest.raises(ValueError, match="attention_impl must be"):
         check_mesh(get_config("tiny"), {"sp": 2, "tp": 1})
+    check_mesh(get_config("tiny", attention_impl="ring"), {"sp": 2, "tp": 2,
+                                                           "pp": 2})
     # debug-sharded has 8 q heads and 4 kv heads: tp 8 splits the q heads
     # but not the kv heads
     with pytest.raises(ValueError, match="num_kv_heads=4"):
@@ -316,17 +322,24 @@ def test_tp_local_qkv_views_meet_the_kernels_strides(name):
 
 
 def test_dryrun_multichip_prints_its_two_tiers(capsys):
+    """The dense tier at sp 2 (ring attention), the MoE/ep tier, the
+    pipeline tier and the serve/tp tier, and the two-host tier's line."""
     dryrun_multichip(WORLD, timeout_s=DEADLINE_S)
     lines = capsys.readouterr().out.splitlines()
     assert lines[0].startswith("dryrun_multichip(4): mesh={'pp': 1, 'dp': 1, "
-                               "'fsdp': 2, 'sp': 1, 'ep': 1, 'tp': 2} loss=")
+                               "'fsdp': 1, 'sp': 2, 'ep': 1, 'tp': 2} loss=")
     assert lines[1].startswith("dryrun_multichip(4) MoE/ep: mesh={'pp': 1, "
                                "'dp': 1, 'fsdp': 1, 'sp': 1, 'ep': 2, "
                                "'tp': 2} loss=")
-    assert lines[2].startswith("dryrun_multichip(4) serve/tp: mesh={'pp': 1, "
+    assert lines[2].startswith("dryrun_multichip(4) PP: mesh={'pp': 2, "
+                               "'dp': 2, 'fsdp': 1, 'sp': 1, 'ep': 1, "
+                               "'tp': 1} loss=")
+    assert lines[3].startswith("dryrun_multichip(4) serve/tp: mesh={'pp': 1, "
                                "'dp': 1, 'fsdp': 1, 'sp': 1, 'ep': 1, "
                                "'tp': 2} greedy parity ok")
-    assert "items 8-9" in lines[3]
+    assert "two-host tier is not run" in lines[4]
+    for line in lines[:3]:
+        assert np.isfinite(float(line.rsplit("loss=", 1)[1]))
 
 
 def test_active_mesh_is_the_ambient_mesh_of_its_thread():

@@ -23,10 +23,12 @@ from ray_tpu.models import llama as jax_llama
 from ray_tpu.ops import attention as jax_attn
 from ray_tpu.ops import flash_attention as jax_flash
 from ray_tpu.ops import paged_attention as jax_paged
+from ray_tpu.parallel import mesh as jax_mesh
 from ray_tpu_torch.models import config as t_config
 from ray_tpu_torch.ops import attention as t_attn
 from ray_tpu_torch.ops import flash_attention as t_flash
 from ray_tpu_torch.ops import paged_attention as t_paged
+from ray_tpu_torch.parallel import mesh as port_mesh
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 BWD_TOL = dict(rtol=5e-5, atol=5e-5)
@@ -280,9 +282,29 @@ def test_attention_dispatcher():
     want = t_attn.reference_attention(q, k, v, causal=True)
     for impl in (None, "flash", "reference"):
         _close(t_attn.attention(q, k, v, causal=True, impl=impl), want)
+    # sequence-parallel attention with no sp mesh: a warning (once), then
+    # dense attention, as in JAX; on an sp mesh a (q_seg, kv_seg) pair is
+    # refused with JAX's error (raised before any collective: a stand-in
+    # mesh of the right sizes will do)
+    sp_mesh = type("SpMesh", (), {"mesh_dim_names": port_mesh.AXES,
+                                  "shape": (1, 1, 1, 2, 1, 1)})()
+    jax_sp_mesh = jax_mesh.create_mesh(jax_mesh.MeshConfig(sp=2, fsdp=1),
+                                       devices=jax.devices()[:2])
+    pair = (np.zeros((2, 12), np.int32),) * 2
     for impl in ("ring", "ulysses"):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            t_attn.attention(q, k, v, impl=impl)
+        t_attn._warned.clear()
+        with pytest.warns(UserWarning, match="running dense attention"):
+            _close(t_attn.attention(q, k, v, causal=True, impl=impl), want)
+        with pytest.raises(NotImplementedError) as jax_err, \
+                jax_mesh.active_mesh(jax_sp_mesh):
+            jax_attn.attention(*(jnp.asarray(x.numpy()) for x in (q, k, v)),
+                               segment_ids=tuple(map(jnp.asarray, pair)),
+                               impl=impl)
+        with pytest.raises(NotImplementedError) as err, \
+                port_mesh.active_mesh(sp_mesh):
+            t_attn.attention(q, k, v, segment_ids=tuple(map(_t, pair)),
+                             impl=impl)
+        assert str(err.value) == str(jax_err.value)
     with pytest.raises(ValueError, match="unknown"):
         t_attn.attention(q, k, v, impl="splash")
 

@@ -9,6 +9,8 @@ parameters after three steps 1e-5 absolute; remat policies against no
 remat 1e-6 (the same operations, recomputed).
 """
 
+import types
+
 import flax.linen as nn
 import jax
 import jax.numpy as jnp
@@ -208,15 +210,48 @@ def test_trainer_loss_decreases_on_debug_sharded():
 
 
 def test_trainer_refuses_a_mesh_and_moe():
-    """A mesh with sp > 1 or pp > 1 is refused, naming ROADMAP item 9
-    (ring/Ulysses attention, gpipe), before any process group is needed;
-    the other axes train (tests/test_torch_mesh.py). An MoE model, once
-    refused, now builds (its parity is tests/test_torch_moe.py's)."""
+    """sp and pp, once refused (ROADMAP item 9), are taken: create_mesh
+    goes on to ask for a process group, and a model splits over sp when
+    its attention is ring or Ulysses (tests/test_torch_sp_pp.py trains
+    on such meshes). On sp a rank's batch is its block of the sequence,
+    with targets cut from the whole rows (so they cross into the next
+    block) and the weight of the global last position zero on the last
+    sp rank only. An MoE model, once refused, now builds (its parity is
+    tests/test_torch_moe.py's)."""
     for axis in ("sp", "pp"):
-        with pytest.raises(NotImplementedError, match="item 9"):
+        with pytest.raises(RuntimeError, match="initialised process group"):
             create_port_mesh(PortMeshConfig(**{axis: 2}))
-        with pytest.raises(NotImplementedError, match="item 9"):
-            check_mesh(get_config("tiny"), {axis: 2, "tp": 1})
+    with pytest.raises(ValueError, match="attention_impl must be"):
+        check_mesh(get_config("tiny"), {"sp": 2, "tp": 1})
+    check_mesh(get_config("tiny", attention_impl="ulysses"), {"sp": 2,
+                                                              "pp": 2})
+
+    class RankPlace:  # the sizes and place a DeviceMesh reports
+        mesh_dim_names = ("pp", "dp", "fsdp", "sp", "ep", "tp")
+
+        def __init__(self, sp_rank):
+            self.sp_rank = sp_rank
+
+        def size(self, dim):
+            return 2 if self.mesh_dim_names[dim] == "sp" else 1
+
+        def get_local_rank(self, axis):
+            return self.sp_rank if axis == "sp" else 0
+
+    rng = np.random.default_rng(2)
+    batch = _batch(rng, get_config("tiny"), b=2, s=8)
+    batch["loss_mask"][1, 3:] = 0  # row 1's targets end in sp block 0
+    parts = [train_lib.ShardedTrainer._batch(
+        types.SimpleNamespace(mesh=RankPlace(r), device="cpu"), batch)
+        for r in range(2)]
+    ids, mask = batch["input_ids"], batch["loss_mask"]
+    want = {"input_ids": ids,
+            "targets": np.concatenate([ids[:, 1:], ids[:, :1]], 1),
+            "weights": np.concatenate([mask[:, 1:], 0 * mask[:, :1]], 1)}
+    for key, value in want.items():
+        got = torch.cat([p[key] for p in parts], dim=1)
+        np.testing.assert_array_equal(got.numpy(), value, err_msg=key)
+    assert parts[0]["weights"].dtype == torch.float32
     model = LlamaModel(get_config("tiny-moe"))
     assert all(hasattr(layer, "moe") and not hasattr(layer, "mlp")
                for layer in model.layers)
