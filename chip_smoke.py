@@ -134,7 +134,23 @@ every thread's traceback and exit code 1.
    at 2 layers likewise; the bytes and seconds to save and load;
 8. train reference: at llama-1b width with 2 layers in float32, one step
    on the card and on the CPU's plain path from the same parameters must
-   give the same loss, grad norm and updated parameters.
+   give the same loss, grad norm and updated parameters;
+9. rllib: every learner of ray_tpu_torch.rllib (PPO discrete and
+   Gaussian, DQN dueling with IS weights, IMPALA, APPO, BC, MARWIL, SAC,
+   CQL, DreamerV3 on a vector and on a 64 x 64 x 3 image) at the JAX
+   package's default sizes: three updates on the card and on the CPU from
+   one init, batch and noise, after_update between them, TF32 off; before
+   each update the CPU takes the card's state, and each update's metrics
+   (rtol 1e-5, grad norm 1e-4) and parameters (phase 8's rule) must agree;
+   DreamerV3's draws that a near tie decides otherwise on the CPU are
+   replayed from the card's and counted. The median ms per update on each
+   side; one act() over 64 envs for the MLP policy and DreamerV3's
+   stateful step (same actions on both sides, ms each); a profiled card
+   update of SAC and DreamerV3;
+10. entry: ``entry.entry()``'s forward (llama-500m width, 8 layers, vocab
+   8192, bf16) on the card: logits [2, 256, 8192], K2 once a layer (added
+   to the training row's launches), within ATOL_ENTRY_BF16 of the same
+   function on the CPU with the same parameters; ms a forward.
 With `--parent DIR` (a directory holding an earlier commit's tree, for
 example unpacked by `git archive` into the ignored `_archive/`), phases 3
 and 6 also build that tree's paged_decode.cu, flash_fwd.cu and
@@ -231,6 +247,12 @@ RTOL_MU_F32 = 1e-4
 # may differ by up to 2 * lr
 ATOL_PARAM_F32 = 1e-6
 NOISY_GRAD = 1e-6
+# entry()'s logits (bf16 compute on float32 parameters, 8 layers), card
+# against CPU: both round every layer's activations to bf16 after
+# products summed in other orders; at the logits' magnitude (up to 4-8,
+# where bf16's step is 2^-5) eight steps. An H100 read 0.078 (2.5 steps)
+# at max|logit| 5.28
+ATOL_ENTRY_BF16 = 0.25
 
 
 # Each phase's deadline in seconds: about five times its time on an H100
@@ -241,13 +263,15 @@ NOISY_GRAD = 1e-6
 # NCCL start and a profiled step, train_reference 5.7; on a slower host
 # build 42.2, kernels 17.4, engine 58.3; tp_engine as engine, with an NCCL
 # start; pp_engine 28.3 with its two processes, dense_cache 0.3,
-# checkpoint 72.4 with 13.5 GB written and read), and at least 30 s
+# checkpoint 72.4 with 13.5 GB written and read; rllib 15.3, entry 10.8),
+# and at least 30 s
 DEADLINES_S = {"device": 30, "build": 120, "kernels": 60, "engine": 240,
                "tp_engine": 240, "engine_v2": 150, "moe": 350, "moe_reference": 200,
                "reference": 150, "train_kernels": 30, "trainer": 45,
                "moe_trainer": 30, "mesh_trainer": 60, "sp_attention": 60,
                "pp_trainer": 90, "train_reference": 45, "pp_engine": 150,
-               "dense_cache": 30, "checkpoint": 360}
+               "dense_cache": 30, "checkpoint": 360, "rllib": 90,
+               "entry": 60}
 
 
 def log(msg: str) -> None:
@@ -2512,7 +2536,7 @@ def run_pp_engine(torch, ref, smi):
     t0 = time.perf_counter()
     ranks = spawn(serve_on_mesh, 2, "cuda",
                   DEADLINES_S["pp_engine"] - 30, args=([run],),
-                  kwargs=dict(device="cuda"), share_device=True)
+                  share_device=True)
     wall = time.perf_counter() - t0
     stages = [r[0] for r in ranks]
     out = stages[0]
@@ -2827,6 +2851,472 @@ def run_checkpoint(torch, reset_counts, smi):
     return out
 
 
+# ------------------------------------------------------------------ rllib
+
+# the JAX package's defaults (its config classes): the learner config,
+# the module spec and the batch of each learner; widths are CartPole-v1's
+# (4 observations, 2 actions) and HalfCheetah's (17, 6). Base config: lr
+# 3e-4, grad_clip 10, gamma 0.99
+RL_CASES = {
+    # name: (algorithm module, learner, module class, spec kwargs,
+    #        observation shape, actions (n, or a box's width), config,
+    #        batch kind)
+    "ppo-discrete": ("ppo", "PPOLearner", "DiscreteMLPModule",
+                     dict(hidden=(64, 64)), (4,), 2, dict(
+                         clip_param=0.3, vf_clip_param=10.0,
+                         vf_loss_coeff=1.0, entropy_coeff=0.0), "ppo"),
+    "ppo-gaussian": ("ppo", "PPOLearner", "GaussianMLPModule",
+                     dict(hidden=(64, 64)), (17,), (6,), dict(
+                         clip_param=0.3, vf_clip_param=10.0,
+                         vf_loss_coeff=1.0, entropy_coeff=0.0), "ppo"),
+    "dqn": ("dqn", "DQNLearner", "QMLPModule",
+            dict(hidden=(64, 64), dueling=True), (4,), 2,
+            dict(target_update_freq=50), "dqn"),
+    "impala": ("impala", "IMPALALearner", "DiscreteMLPModule",
+               dict(hidden=(64, 64)), (4,), 2, dict(
+                   lr=6e-4, vf_loss_coeff=0.5, entropy_coeff=0.005,
+                   vtrace_clip_rho=1.0, vtrace_clip_c=1.0), "impala"),
+    "appo": ("impala", "APPOLearner", "DiscreteMLPModule",
+             dict(hidden=(64, 64)), (4,), 2, dict(
+                 lr=6e-4, vf_loss_coeff=0.5, entropy_coeff=0.005,
+                 vtrace_clip_rho=1.0, vtrace_clip_c=1.0, clip_param=0.2),
+             "impala"),
+    "bc": ("bc", "MARWILLearner", "DiscreteMLPModule", dict(hidden=(64, 64)),
+           (4,), 2, dict(beta=0.0, vf_coeff=1.0), "offline"),
+    "marwil": ("bc", "MARWILLearner", "DiscreteMLPModule",
+               dict(hidden=(64, 64)), (4,), 2,
+               dict(beta=1.0, vf_coeff=1.0), "offline"),
+    "sac": ("sac", "SACLearner", "SACModule", dict(hidden=(256, 256)),
+            (17,), (6,), dict(tau=0.005, initial_alpha=1.0), "sac"),
+    "cql": ("cql", "CQLLearner", "SACModule", dict(hidden=(256, 256)),
+            (17,), (6,), dict(tau=0.005, initial_alpha=1.0, cql_alpha=1.0,
+                              cql_n_actions=4), "sac"),
+    "dreamerv3-vector": ("dreamerv3", "DreamerV3Learner", "DreamerV3Module",
+                         dict(config=dict(hidden=128, deter=128, stoch=8,
+                                          classes=8, bins=41)),
+                         (4,), 2, dict(lr=4e-4, imagine_horizon=8,
+                                       lambda_=0.95, entropy_coef=3e-3,
+                                       free_bits=1.0), "dreamer"),
+    "dreamerv3-image": ("dreamerv3", "DreamerV3Learner", "DreamerV3Module",
+                        dict(config=dict(hidden=128, deter=128, stoch=8,
+                                         classes=8, bins=41)),
+                        (64, 64, 3), 6, dict(lr=4e-4, imagine_horizon=8,
+                                             lambda_=0.95,
+                                             entropy_coef=3e-3,
+                                             free_bits=1.0), "dreamer"),
+}
+RL_SEED = 12
+RL_UPDATES = 3
+ACT_ENVS = 64
+
+
+def rl_spaces(obs_shape, acts):
+    """Spaces as the modules read them: ``.shape``, and ``.n`` or a box's
+    ``.shape``, ``.low`` and ``.high``."""
+    from types import SimpleNamespace
+
+    obs = SimpleNamespace(shape=tuple(obs_shape))
+    if isinstance(acts, int):
+        return obs, SimpleNamespace(n=acts)
+    return obs, SimpleNamespace(shape=acts, low=-np.ones(acts, np.float32),
+                                high=np.ones(acts, np.float32))
+
+
+def rl_batch(kind, rng, obs_shape, acts):
+    """A numpy batch in the JAX learners' format at the default sizes."""
+    f32 = np.float32
+    d = int(np.prod(obs_shape))
+    if kind == "ppo":  # minibatch 128
+        n = 128
+        actions = (rng.integers(0, acts, n).astype(np.int32)
+                   if isinstance(acts, int)
+                   else rng.uniform(-0.95, 0.95, (n, *acts)).astype(f32))
+        return {"obs": rng.normal(size=(n, d)).astype(f32),
+                "actions": actions,
+                "logp": (rng.normal(scale=0.3, size=n) - 1.0).astype(f32),
+                "advantages": rng.normal(size=n).astype(f32),
+                "value_targets": rng.normal(scale=3, size=n).astype(f32)}
+    if kind in ("dqn", "sac"):  # update batch 64; 256
+        n = 64 if kind == "dqn" else 256
+        actions = (rng.integers(0, acts, n).astype(np.int32)
+                   if isinstance(acts, int)
+                   else rng.uniform(-0.95, 0.95, (n, *acts)).astype(f32))
+        out = {"obs": rng.normal(size=(n, d)).astype(f32),
+               "actions": actions,
+               "rewards": rng.normal(size=n).astype(f32),
+               "next_obs": rng.normal(size=(n, d)).astype(f32),
+               "dones": (rng.random(n) < 0.05).astype(f32)}
+        if kind == "dqn":  # prioritized replay's IS weights
+            out["weights"] = rng.uniform(0.2, 1.0, n).astype(f32)
+        return out
+    if kind == "impala":  # 500 steps as B 10 x T 50, some rows padded
+        B, T = 10, 50
+        lengths = np.where(np.arange(B) % 3 == 2, rng.integers(5, T, B), T)
+        mask = (np.arange(T)[None] < lengths[:, None]).astype(f32)
+        return {"obs": rng.normal(size=(B, T, d)).astype(f32)
+                * mask[..., None],
+                "actions": (rng.integers(0, acts, (B, T)) * mask).astype(
+                    np.int32),
+                "rewards": rng.normal(size=(B, T)).astype(f32) * mask,
+                "behavior_logp": (rng.normal(scale=0.3, size=(B, T))
+                                  - 0.7).astype(f32) * mask,
+                "mask": mask,
+                "bootstrap_obs": rng.normal(size=(B, d)).astype(f32),
+                "terminated": (rng.random(B) < 0.3).astype(f32),
+                "length": lengths.astype(np.int32)}
+    if kind == "offline":  # minibatch 256
+        n = 256
+        return {"obs": rng.normal(size=(n, d)).astype(f32),
+                "actions": rng.integers(0, acts, n).astype(np.int32),
+                "returns": rng.normal(scale=10, size=n).astype(f32)}
+    B, T = 8, 32  # DreamerV3: batch_size_B, batch_length_T
+    is_first = np.zeros((B, T), f32)
+    is_first[:, 0] = 1.0
+    is_first[np.arange(B) % 4 == 1, T // 2] = 1.0
+    obs = (rng.uniform(0, 255, (B, T, *obs_shape)) if len(obs_shape) == 3
+           else rng.normal(size=(B, T, *obs_shape)))
+    return {"obs": obs.astype(f32),
+            "actions": rng.integers(0, acts, (B, T)).astype(np.int32),
+            "rewards": rng.normal(scale=2, size=(B, T)).astype(f32),
+            "dones": (rng.random((B, T)) < 0.02).astype(f32),
+            "is_first": is_first}
+
+
+class ReplayDraws:
+    """Wraps ``categorical_sample`` in DreamerV3's module (its latents'
+    and actions' draws): the card's run records each draw's indices, and
+    the CPU's run takes the card's index where its own differs, counting
+    those. A draw is argmax(logits + gumbel) of the same noise on both
+    sides, so they differ only where two classes tie within float
+    rounding; the comparison then holds every continuous quantity on the
+    same discrete path."""
+
+    def __init__(self, module):
+        self.module = module
+        self.draw = module.categorical_sample
+        self.mode = None
+        self.recorded = []
+        self.flips = self.draws = 0
+        self.at = 0
+
+    def __call__(self, logits, gumbel):
+        idx = self.draw(logits, gumbel)
+        if self.mode == "record":
+            self.recorded.append(idx)
+        elif self.mode == "replay":
+            want = self.recorded[self.at].to(idx.device)
+            self.at += 1
+            self.draws += want.numel()
+            self.flips += int((want != idx).sum())
+            idx = want
+        return idx
+
+    def start(self, mode):
+        self.mode, self.at = mode, 0
+        if mode == "record":
+            self.recorded = []
+
+    def __enter__(self):
+        self.module.categorical_sample = self
+        return self
+
+    def __exit__(self, *exc):
+        self.module.categorical_sample = self.draw
+
+
+def rl_learners(torch, name, extra=None):
+    """The case's learner on the card and on the CPU, from one init (the
+    learners draw it on the CPU from the seed); ``extra`` joins the
+    config."""
+    import importlib
+
+    from ray_tpu_torch.rllib.core import rl_module
+
+    algo, cls_name, mod_name, spec_kw, obs_shape, acts, cfg, kind = \
+        RL_CASES[name]
+    alg = importlib.import_module(f"ray_tpu_torch.rllib.algorithms.{algo}")
+    mod_cls = (getattr(alg, mod_name) if hasattr(alg, mod_name)
+               else getattr(rl_module, mod_name))
+    obs_space, act_space = rl_spaces(obs_shape, acts)
+    cfg = {"lr": 3e-4, "grad_clip": 10.0, "gamma": 0.99, **cfg,
+           **(extra or {})}
+    learners = {}
+    for dev in ("cuda", "cpu"):
+        spec = rl_module.RLModuleSpec(module_class=mod_cls, **spec_kw)
+        learners[dev] = getattr(alg, cls_name)(
+            spec.build(obs_space, act_space), dict(cfg), seed=RL_SEED,
+            device=dev)
+    return alg, learners, cfg
+
+
+def rl_metric_err(got, want, key):
+    """Relative error of a metric: the grad norm's against its value, the
+    others' against max(|value|, 1) (a mean of O(1) terms may cancel
+    toward 0, where its rounding stays that of the terms)."""
+    if key == "grad_norm":
+        return abs(got - want) / abs(want)
+    return abs(got - want) / max(abs(want), 1.0)
+
+
+@contextlib.contextmanager
+def rl_synced(cuda, cpu):
+    """The CPU learner takes the card's parameters, Adam moments and
+    return scale before an update (each update is then one step from the
+    same state, as phase 8's); yields the CPU's first moments before the
+    update (for rl_param_check). Targets are not copied: after_update's
+    work shows through the next update's loss."""
+    import torch
+
+    with torch.no_grad():
+        for k, p in cpu.params.items():
+            p.copy_(cuda.params[k].cpu())
+        for key in ("mu", "nu"):
+            for a, b in zip(cpu.opt_state[key], cuda.opt_state[key]):
+                a.copy_(b.cpu())
+    assert cpu.opt_state["count"] == cuda.opt_state["count"]
+    if hasattr(cuda, "_ret_scale"):
+        cpu._ret_scale = cuda._ret_scale
+    yield [m.clone() for m in cpu.opt_state["mu"]]
+
+
+def rl_param_check(cuda, cpu, mu_before, lr):
+    """One update's parameters, phase 8's rule: within ATOL_PARAM_F32
+    wherever the step's clipped gradient (from the CPU's Adam first
+    moment before and after) is at least NOISY_GRAD; elsewhere within
+    2 * lr."""
+    b1 = 0.9
+    total = off = over = 0
+    worst = 0.0
+    for (name, p), mu, mu0 in zip(cpu.params.items(), cpu.opt_state["mu"],
+                                  mu_before):
+        diff = (cuda.params[name].cpu() - p).abs()
+        grad = (mu - b1 * mu0) / (1 - b1)
+        total += diff.numel()
+        over += int((diff > ATOL_PARAM_F32).sum())
+        off += int((diff[grad.abs() >= NOISY_GRAD] > ATOL_PARAM_F32).sum())
+        worst = max(worst, float(diff.max()))
+    return {"param_entries": total, "param_entries_over_atol": over,
+            "param_entries_over_atol_with_grad_over_noise": off,
+            "param_max_abs_diff": worst,
+            "ok": off == 0 and worst <= 2 * lr + ATOL_PARAM_F32}
+
+
+def run_rl_case(torch, name, smi):
+    """Three updates of one learner on the card and on the CPU from the
+    same init, batch and noise, after_update between them."""
+    _, _, _, _, obs_shape, acts, cfg, kind = RL_CASES[name]
+    batch = rl_batch(kind, np.random.default_rng(RL_SEED), obs_shape, acts)
+    # MARWIL's dataset-level advantage scale, as MARWILConfig sets it
+    extra = ({"adv_scale": float(np.std(batch["returns"]) + 1e-6)}
+             if kind == "offline" and cfg["beta"] else None)
+    alg, learners, cfg = rl_learners(torch, name, extra)
+    cuda, cpu = learners["cuda"], learners["cpu"]
+    for k, p in cpu.params.items():
+        assert torch.equal(cuda.params[k].cpu(), p), f"{name}: init {k}"
+    ms = {"cuda": [], "cpu": []}
+    errs = {}
+    params = {"param_entries": 0, "param_entries_over_atol": 0,
+              "param_entries_over_atol_with_grad_over_noise": 0,
+              "param_max_abs_diff": 0.0, "ok": True}
+    flips = draws = 0
+    with contextlib.ExitStack() as stack:
+        replay = (stack.enter_context(ReplayDraws(alg))
+                  if name.startswith("dreamerv3") else None)
+        for _ in range(RL_UPDATES):
+            metrics = {}
+            mu_before = stack.enter_context(rl_synced(cuda, cpu))
+            for dev, learner in learners.items():
+                if replay is not None:
+                    replay.start("record" if dev == "cuda" else "replay")
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                metrics[dev] = learner.update(batch)  # syncs: metrics out
+                ms[dev].append((time.perf_counter() - t0) * 1e3)
+            for learner in learners.values():
+                learner.after_update()
+            for key, want in metrics["cpu"].items():
+                errs[key] = max(errs.get(key, 0.0), rl_metric_err(
+                    metrics["cuda"][key], want, key))
+            step = rl_param_check(cuda, cpu, mu_before, cfg["lr"])
+            for key, val in step.items():
+                params[key] = (params[key] and val if key == "ok"
+                               else max(params[key], val)
+                               if key == "param_max_abs_diff"
+                               else params[key] + val)
+        if replay is not None:
+            flips, draws = replay.flips, replay.draws
+    med = {dev: sorted(v)[len(v) // 2] for dev, v in ms.items()}
+    out = {"update_ms_cuda": med["cuda"], "update_ms_cpu": med["cpu"],
+           "update_ms_cuda_all": ms["cuda"], "update_ms_cpu_all": ms["cpu"],
+           "metric_rel_err": errs, "last_metrics": metrics["cuda"],
+           **{k: v for k, v in params.items() if k != "ok"}}
+    if draws:
+        out.update(draws=draws, draws_differing=flips)
+    log(f"rllib {name} on {smi}: {med['cuda']:.2f} ms per update on the "
+        f"card, {med['cpu']:.2f} ms on the CPU (median of {RL_UPDATES}); "
+        f"metric rel errs {json.dumps({k: float(f'{v:.2e}') for k, v in errs.items()})}; "
+        f"params over the {RL_UPDATES} updates: "
+        f"{params['param_entries_over_atol']} of {params['param_entries']} "
+        f"over {ATOL_PARAM_F32}, "
+        f"{params['param_entries_over_atol_with_grad_over_noise']} where "
+        f"|clipped grad| >= {NOISY_GRAD} (allowed 0), max diff "
+        f"{params['param_max_abs_diff']:.3e}"
+        + (f"; {flips} of {draws} draws decided otherwise on the CPU "
+           f"(replayed)" if draws else ""))
+    for key, err in errs.items():
+        tol = RTOL_GNORM_F32 if key == "grad_norm" else RTOL_LOSS_F32
+        assert err <= tol, f"rllib {name}: {key} rel err {err:.3e} > {tol}"
+    assert params["ok"], f"rllib {name}: parameters disagree"
+    assert all(math.isfinite(v) for v in metrics["cuda"].values())
+    return out, learners
+
+
+def time_act(torch, fn, calls: int = 20) -> float:
+    """Median wall ms of fn() (act copies its result to the host, which
+    waits for the card), after 2 warm-up calls."""
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[calls // 2]
+
+
+def run_act(torch, name, learners, smi):
+    """One act() over ACT_ENVS envs with the case's trained module on the
+    card and on the CPU: the same actions given the same noise (DreamerV3's
+    draws replayed as in its updates), then the median ms of each."""
+    from ray_tpu_torch.rllib.algorithms import dreamerv3
+    from ray_tpu_torch.rllib.core.rl_module import gumbel_noise
+    from ray_tpu_torch.rllib.env.policy import act
+
+    module = learners["cpu"].module
+    obs_shape = RL_CASES[name][4]
+    obs = np.random.default_rng(RL_SEED).normal(
+        size=(ACT_ENVS, *obs_shape)).astype(np.float32)
+    stateful = name.startswith("dreamerv3")
+    gen = torch.Generator().manual_seed(RL_SEED)
+    if stateful:
+        noise = {"z": gumbel_noise((ACT_ENVS, module.stoch, module.classes),
+                                   gen),
+                 "a": gumbel_noise((ACT_ENVS, module.act_dim), gen)}
+    else:
+        noise = {"gumbel": gumbel_noise((ACT_ENVS, module.n_actions), gen)}
+    outs = {}
+    with ReplayDraws(dreamerv3) as replay:
+        for dev, learner in learners.items():
+            replay.start("record" if dev == "cuda" else "replay")
+            state = learner.module.initial_state(ACT_ENVS) if stateful \
+                else None
+            outs[dev] = act(learner.module, learner.params, obs,
+                            state=state, noise=noise)
+    np.testing.assert_array_equal(outs["cuda"]["actions"],
+                                  outs["cpu"]["actions"])
+    logp_err = float(np.abs(outs["cuda"]["logp"] - outs["cpu"]["logp"]).max())
+    assert logp_err <= 1e-4, f"act {name}: logp differs by {logp_err}"
+    ms = {}
+    for dev, learner in learners.items():
+        gen = torch.Generator().manual_seed(RL_SEED)
+        state = [learner.module.initial_state(ACT_ENVS) if stateful
+                 else None]
+
+        def step():
+            out = act(learner.module, learner.params, obs, generator=gen,
+                      state=state[0])
+            state[0] = out.get("state")
+
+        ms[dev] = time_act(torch, step)
+    log(f"act {name} ({ACT_ENVS} envs) on {smi}: {ms['cuda']:.3f} ms on the "
+        f"card, {ms['cpu']:.3f} ms on the CPU (median of 20); logp err "
+        f"{logp_err:.2e}, {replay.flips} draws replayed")
+    return {"envs": ACT_ENVS, "ms_cuda": ms["cuda"], "ms_cpu": ms["cpu"],
+            "logp_max_abs_err": logp_err}
+
+
+def profile_update(torch, name, learner, smi):
+    """One more update of the card's learner under torch.profiler: wall
+    ms, device busy ms and share, kernels launched, the top host ops."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _, _, _, _, obs_shape, acts, _, kind = RL_CASES[name]
+    batch = rl_batch(kind, np.random.default_rng(RL_SEED), obs_shape, acts)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        learner.update(batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    out = device_summary(prof, wall)
+    out["kernels"] = sum(e.count for e in prof.key_averages()
+                         if e.device_type.name == "CUDA")
+    out["host_top"] = host_summary(prof, 5)
+    log(f"rllib {name} on {smi}, a profiled update: "
+        f"{out['profiled_wall_ms']:.1f} ms wall, device busy "
+        f"{out['device_busy_ms']:.2f} ms "
+        f"({100 * out['device_busy_share']:.1f}%), {out['kernels']} kernels")
+    return out
+
+
+def run_rllib(torch, smi):
+    """Phase rllib: every learner of ray_tpu_torch.rllib at the JAX
+    package's default sizes, three updates on the card and on the CPU in
+    this process (TF32 off, cuDNN's too), held to phase 8's tolerances;
+    the median ms per update on each, and the ms of one act() over 64
+    envs for the MLP policy and DreamerV3's stateful step; a profiled
+    card update of SAC and of both DreamerV3 cases."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for name in RL_CASES:
+        out[name], learners = run_rl_case(torch, name, smi)
+        if name in ("ppo-discrete", "dreamerv3-vector", "dreamerv3-image"):
+            out[name]["act"] = run_act(torch, name, learners, smi)
+        if name in ("sac", "dreamerv3-vector", "dreamerv3-image"):
+            out[name]["profiled_update"] = profile_update(
+                torch, name, learners["cuda"], smi)
+        del learners
+    out["card"] = smi
+    return out
+
+
+# ------------------------------------------------------------------ entry
+
+def run_entry(torch, smi):
+    """Phase entry: ``entry.entry()``'s forward on the card (llama-500m
+    width, 8 layers, vocab 8192, bf16 compute) on its [2, 256] ids: logits
+    [2, 256, 8192], K2 once a layer, held to the same function on the CPU
+    with the same parameters within ATOL_ENTRY_BF16."""
+    from ray_tpu_torch.entry import entry
+    from ray_tpu_torch.ops.flash_attention import flash_attention
+
+    fn, (params, ids) = entry()
+    fn(params, ids)  # builds and warms the kernels
+    torch.cuda.synchronize()
+    flash_attention.launches = 0  # the main path's run starts here
+    logits = fn(params, ids)
+    torch.cuda.synchronize()
+    launches = flash_attention.launches
+    ms = sorted(time_windows(lambda: fn(params, ids), iters=5,
+                             windows=5))[2]
+    cpu = fn({k: v.cpu() for k, v in params.items()}, ids.cpu())
+    err = max_err(logits.cpu(), cpu)
+    scale = float(cpu.float().abs().max())
+    log(f"entry on {smi}: logits {list(logits.shape)} {logits.dtype}, K2 "
+        f"launches {launches}, {ms:.3f} ms a forward (CUDA events, median "
+        f"of 5 windows of 5); max|card - CPU| {err:.3e} (atol "
+        f"{ATOL_ENTRY_BF16}; max|logit| {scale:.3f})")
+    assert tuple(logits.shape) == (2, 256, 8192), logits.shape
+    assert bool(torch.isfinite(logits).all()), "non-finite logits"
+    assert launches == 8, f"K2 launched {launches} times, expected 8"
+    assert err <= ATOL_ENTRY_BF16, "entry logits disagree with the CPU"
+    return {"shape": list(logits.shape), "dtype": str(logits.dtype),
+            "k2_launches": launches, "ms": ms, "max_abs_err": err,
+            "max_abs_logit": scale, "card": smi}
+
+
 def child_processes() -> list:
     """The pids of the processes whose parent is this one (from /proc)."""
     kids = []
@@ -3057,6 +3547,19 @@ def main() -> int:
                                    DEADLINES_S["train_reference"],
                                    check_train_reference, torch)
 
+    # 9. the RL learners, card against CPU
+    rllib = run_phase("rllib", DEADLINES_S["rllib"], run_rllib, torch, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 10. entry(): the Llama forward through K2, its launches added to the
+    # cache-free row's
+    entry_out = run_phase("entry", DEADLINES_S["entry"], run_entry, torch,
+                          smi)
+    counts["flash_fwd_train"] += entry_out["k2_launches"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # every process the run started has ended: pp_engine's spawn server
     # and its resource tracker would outlive the exit by a moment
     # otherwise (the ranks ended inside spawn)
@@ -3101,7 +3604,8 @@ def main() -> int:
             "ttft_ms", "decode_tok_s", "wall_s", "steady", "frames",
             "sharding", "collective_host_us")},
         "pp_engine": pp_eng, "dense_cache": dense,
-        "engine_v2": engine_v2, "moe": moe, "train": train, "card": smi}
+        "engine_v2": engine_v2, "moe": moe, "train": train,
+        "rllib": rllib, "entry": entry_out, "card": smi}
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,6 +1,8 @@
-"""Multi-rank dry run of the mesh trainers and of the tensor-parallel
-engine: the counterpart of the JAX package's ``dryrun_multichip``
-(``__graft_entry__.py``), on gloo CPU ranks.
+"""The entry points of the JAX package's ``__graft_entry__.py``:
+``entry()``, a forward step of the Llama model on one device (the card
+unless "cpu" is asked for), and the multi-rank dry run of the mesh
+trainers and of the tensor-parallel engine (``dryrun_multichip``), on
+gloo CPU ranks.
 
     python -c "from ray_tpu_torch.entry import dryrun_multichip; \
 dryrun_multichip(8)"
@@ -25,10 +27,11 @@ from typing import (Any, Callable, Dict, List, Mapping, Optional, Sequence,
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.func import functional_call
 
 from .models.config import get_config
 from .models.llama import LlamaModel
-from .models.convert import params_from_flax
+from .models.convert import build_model, init_params, params_from_flax
 from .ops.pipeline import stack_to_stages
 from .parallel.mesh import (MeshConfig, batch_shard, create_mesh,
                             mesh_sizes, serve_mesh)
@@ -50,6 +53,40 @@ def parity_prompts() -> List[List[int]]:
     """The fixed prompt set of the greedy parity contract."""
     return [list(np.random.default_rng(s).integers(0, 500, n))
             for s, n in ((0, 13), (1, 9), (2, 21))]
+
+
+def _refuse_missing_cuda(what: str, device) -> None:
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{what} device is 'cuda' but no CUDA device is "
+                           "available (pass device='cpu' to run on the CPU)")
+
+
+def entry(device: str = "cuda") -> Tuple[Callable, Tuple[Dict[str,
+                                                              torch.Tensor],
+                                                         torch.Tensor]]:
+    """The single-device entry point, the counterpart of the JAX package's
+    ``__graft_entry__.entry()``: returns ``(fn, (params, input_ids))``,
+    where ``fn(params, input_ids)`` is a forward step of ``LlamaModel`` at
+    ``get_config("llama-500m", vocab_size=8192, num_layers=8,
+    max_seq_len=2048)`` and gives the logits [2, 256, 8192]. ``params`` is
+    the model's state dict (float32, seeded init on ``device``), computed
+    in bfloat16 (the config's dtype); ``input_ids`` [2, 256] come from
+    ``np.random``. On the card the attention runs K2; ``fn`` given CPU
+    parameters and ids runs the plain path on the CPU."""
+    _refuse_missing_cuda("entry", device)
+    cfg = get_config("llama-500m", vocab_size=8192, num_layers=8,
+                     max_seq_len=2048)
+    params = init_params(cfg, torch.Generator(device).manual_seed(0), device,
+                         cfg.param_dtype)
+    model = build_model(cfg, params, device, param_dtype=cfg.param_dtype)
+    input_ids = torch.from_numpy(np.random.randint(
+        0, cfg.vocab_size, (2, 256), dtype=np.int32)).to(device)
+
+    def fwd(params, input_ids):
+        with torch.inference_mode():
+            return functional_call(model, params, (input_ids,))
+
+    return fwd, (params, input_ids)
 
 
 def train_on_mesh(model: str, mesh_config: Mapping[str, int],
@@ -324,7 +361,7 @@ def _trace_routing(trainer, mesh, batch) -> Dict[str, Any]:
 
 def serve_on_mesh(runs: Sequence[Mapping[str, Any]],
                   params: Optional[Mapping[str, np.ndarray]] = None,
-                  device: str = "cpu") -> List[Dict[str, Any]]:
+                  device: str = "cuda") -> List[Dict[str, Any]]:
     """On each rank of an initialised world: each run of ``runs`` in turn
     through ``make_engine``: an ``LLMEngine`` on ``serve_mesh(world
     size)``, or with the engine's ``pp`` > 1 a ``PipelinedEngine`` over
@@ -346,7 +383,9 @@ def serve_on_mesh(runs: Sequence[Mapping[str, Any]],
     ``drive``'s output, ``steady`` (and ``single_tokens``; under pp the
     engine's ``pp_stats()``, ``link_stats()`` and pipeline depth). A
     prefill_only request's blob is kept under its request id for later
-    runs' ``inject``."""
+    runs' ``inject``. The engines run on ``device``, the card unless
+    "cpu" is asked for (on a world of gloo CPU ranks)."""
+    _refuse_missing_cuda("serve_on_mesh", device)
     mesh = None
     blobs: Dict[str, Any] = {}
     results = []
@@ -680,7 +719,8 @@ def dryrun_multichip(n_devices: int, timeout_s: float = 300.0) -> None:
         # tensor-parallel serving: greedy tokens of the tp engine equal
         # one device's (the JAX tier's contract)
         out = spawn(serve_on_mesh, 2, "cpu", timeout_s,
-                    args=([serve_tier_run()],))[0][0]
+                    args=([serve_tier_run()],),
+                    kwargs=dict(device="cpu"))[0][0]
         print(serve_tier_line(n_devices, out))
     print(f"dryrun_multichip({n_devices}): the two-host tier is not run: "
           f"it is out of the port (ROADMAP item 5)")

@@ -180,13 +180,14 @@ def test_unported_engine_options_are_refused(option):
 
 
 def test_package_imports_no_jax_and_nothing_of_ray_tpu():
-    """No file of ray_tpu_torch, nor chip_smoke.py, imports jax, flax or
-    ray_tpu (relative imports stay inside ray_tpu_torch)."""
+    """No file of ray_tpu_torch, nor chip_smoke.py, imports jax, flax,
+    optax, gymnasium or ray_tpu (relative imports stay inside
+    ray_tpu_torch); the card's machine has none of them."""
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, names in os.walk(os.path.join(REPO, "ray_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 10
-    banned = ("jax", "flax", "ray_tpu")
+    banned = ("jax", "flax", "optax", "gymnasium", "ray_tpu")
     for path in files:
         tree = ast.parse(open(path).read(), path)
         for node in ast.walk(tree):

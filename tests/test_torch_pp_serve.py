@@ -116,7 +116,8 @@ def world(tiny_params):
     ranks = spawn(entry.serve_on_mesh, PP, "cpu", DEADLINE_S,
                   args=(runs,),
                   kwargs=dict(params={k: v.numpy()
-                                      for k, v in tiny_params.items()}))
+                                      for k, v in tiny_params.items()},
+                              device="cpu"))
     return types.SimpleNamespace(want=want, solo=solo, ranks=ranks)
 
 

@@ -202,7 +202,8 @@ def world(jax_pp):
         "engine": dict(PP_SERVE_CFG, pp=2, tp=2),
         "waves": [[(rid, p, {"max_tokens": 5}, None)
                    for rid, p in PP_SERVE_PROMPTS.items()]]}],),
-        dict(params={k: v.numpy() for k, v in serve_params.items()})))
+        dict(params={k: v.numpy() for k, v in serve_params.items()},
+             device="cpu")))
     ranks = spawn(in_turn, WORLD, "cpu", DEADLINE_S, args=(calls,))
     ops = [r[0] for r in ranks]
     return {"cfg": cfg, "batches": batches, "sd0": sd0,

@@ -128,7 +128,8 @@ def tiny_world(tiny_params):
     ranks = spawn(entry.serve_on_mesh, TP, "cpu", DEADLINE_S,
                   args=(list(runs.values()),),
                   kwargs=dict(params={k: v.numpy()
-                                      for k, v in tiny_params.items()}))
+                                      for k, v in tiny_params.items()},
+                              device="cpu"))
     by_run = [dict(zip(runs, r)) for r in ranks]
     port_blob = by_run[0]["pd_prefill"]["blobs"]["pd"]
     jax_from_port = _jax_inject(engine_j, port_blob)
@@ -259,6 +260,17 @@ def test_serve_mesh_needs_a_tp_axis_and_nothing_else():
         mesh_dim_names=("dp", "tp"), shape=(1, 4))) == 4
 
 
+def test_serve_on_mesh_and_entry_refuse_cuda_without_cuda():
+    """Both default to the card: without CUDA they raise rather than run
+    on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        entry.serve_on_mesh([])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        entry.entry()
+
+
 def test_world_past_its_deadline_fails():
     """Rank 0 holds its engine for 30 s (it sleeps past a request's
     deadline) while rank 1 waits in follow(): the world is killed at its
@@ -266,7 +278,8 @@ def test_world_past_its_deadline_fails():
     run = {"engine": ENGINE_CFG, "seeded": True,
            "waves": [[("r", PD_PROMPT, dict(max_tokens=4), 30.0)]]}
     with pytest.raises(TimeoutError, match="had not finished after 1.0 s"):
-        spawn(entry.serve_on_mesh, TP, "cpu", 1.0, args=([run],))
+        spawn(entry.serve_on_mesh, TP, "cpu", 1.0, args=([run],),
+              kwargs=dict(device="cpu"))
 
 
 # ------------------------------------------------------------ tiny-moe
@@ -314,7 +327,8 @@ def test_tp2_moe_tokens_and_routing_match_jax_engine():
     run = {"engine": MOE_ENGINE_CFG, "waves": [_wave(prompts)],
            "routing": 4}
     ranks = spawn(entry.serve_on_mesh, TP, "cpu", DEADLINE_S, args=([run],),
-                  kwargs=dict(params={k: v.numpy() for k, v in sd.items()}))
+                  kwargs=dict(params={k: v.numpy() for k, v in sd.items()},
+                              device="cpu"))
     assert ranks[0][0]["tokens"] == want
     routing = ranks[0][0]["routing"]
     assert len(routing) == cfg.num_layers
