@@ -13,7 +13,8 @@ every thread's traceback and exit code 1.
    function's count of wgmma (HGMMA), TMA load (UTMALDG), bulk copy
    (UBLKCP) and mma.sync (HMMA) instructions; the bf16 K2, K3 and K4
    kernels must have HGMMA and UTMALDG, the bf16 K1 kernel a bulk copy and
-   tensor-core instructions;
+   tensor-core instructions, and each has an instance at every head dim of
+   KERNEL_HEAD_DIMS;
 3. kernels: each kernel against its plain PyTorch version at Llama-3-8B
    shapes in bf16 (max error against a stated tolerance), with CUDA-event
    times of the kernel, the plain version and one PyTorch library call,
@@ -150,7 +151,20 @@ every thread's traceback and exit code 1.
 10. entry: ``entry.entry()``'s forward (llama-500m width, 8 layers, vocab
    8192, bf16) on the card: logits [2, 256, 8192], K2 once a layer (added
    to the training row's launches), within ATOL_ENTRY_BF16 of the same
-   function on the CPU with the same parameters; ms a forward.
+   function on the CPU with the same parameters; ms a forward;
+11. head_dims: K1-K4 at head dims 32, 96 and 256 (Hq/Hkv 8/4, 32/32,
+   16/8), bf16 and float32, against their plain versions (K1: phase 3's
+   ragged lengths, NaN outside the live rows; K2-K4: B 2, S 2048 causal,
+   packed segments, 512 queries over 2048 keys), timed with L2 flushed
+   beside their bounds and SDPA where it takes the shape; Phi-3-mini's
+   widths (D 96) served at full depth in bf16 with phase 4's traffic
+   (TTFT, tok/s), a Llama block at Gemma-2-9B's attention widths (D 256)
+   and a small Llama at D 32 served at 4 layers likewise; phase 5's
+   check (f32, 2 layers, card against CPU) at D 96 and D 256; 3
+   ShardedTrainer steps at each width (4 layers) in bf16 and float32,
+   each held to the same steps with attention through the plain versions
+   on the card. Rows "<kernel>_d<D>" (bf16, float32 under "f32") count
+   the launches of these served and trained runs.
 With `--parent DIR` (a directory holding an earlier commit's tree, for
 example unpacked by `git archive` into the ignored `_archive/`), phases 3
 and 6 also build that tree's paged_decode.cu, flash_fwd.cu and
@@ -263,15 +277,15 @@ ATOL_ENTRY_BF16 = 0.25
 # NCCL start and a profiled step, train_reference 5.7; on a slower host
 # build 42.2, kernels 17.4, engine 58.3; tp_engine as engine, with an NCCL
 # start; pp_engine 28.3 with its two processes, dense_cache 0.3,
-# checkpoint 72.4 with 13.5 GB written and read; rllib 15.3, entry 10.8),
-# and at least 30 s
+# checkpoint 72.4 with 13.5 GB written and read; rllib 15.3, entry 10.8;
+# head_dims 55.6), and at least 30 s
 DEADLINES_S = {"device": 30, "build": 120, "kernels": 60, "engine": 240,
                "tp_engine": 240, "engine_v2": 150, "moe": 350, "moe_reference": 200,
                "reference": 150, "train_kernels": 30, "trainer": 45,
                "moe_trainer": 30, "mesh_trainer": 60, "sp_attention": 60,
                "pp_trainer": 90, "train_reference": 45, "pp_engine": 150,
                "dense_cache": 30, "checkpoint": 360, "rllib": 90,
-               "entry": 60}
+               "entry": 60, "head_dims": 280}
 
 
 def log(msg: str) -> None:
@@ -504,7 +518,10 @@ def check_sass(_build) -> None:
     mma.sync (HMMA) instructions per entry function of the built libraries.
     The bf16 K2, K3 and K4 kernels must have HGMMA and UTMALDG, and no
     mma.sync design of them may remain; the bf16 K1 kernel must have a
-    bulk copy and tensor-core instructions."""
+    bulk copy and tensor-core instructions; each of the four has an
+    instance at every head dim of KERNEL_HEAD_DIMS."""
+    from ray_tpu_torch.ops.flash_attention import KERNEL_HEAD_DIMS
+
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     counts = {}
     for name in _build.SOURCES:
@@ -537,6 +554,12 @@ def check_sass(_build) -> None:
     old = [fn for fn in counts if any(
         key in fn for key in ("flash_fwd_mma", "bwd_dq_mma", "bwd_dkv_mma"))]
     assert not old, f"an mma.sync design of K2, K3 or K4 remains: {old}"
+    # a bf16 instance of each kernel at every head dim the wrappers take
+    for key in ("flash_fwd_wgmma", "bwd_dq_wgmma", "bwd_dkv_wgmma",
+                "paged_decode_mma"):
+        for d in KERNEL_HEAD_DIMS:
+            assert any(f"{key}ILi{d}E" in fn for fn in counts), \
+                f"no {key}<{d}> in the built libraries"
 
 
 def profile_decode_kernels(torch, fn, calls: int = 20) -> dict:
@@ -763,55 +786,74 @@ def add_bounds(results):
             f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
 
 
-def check_training_kernels(torch, flush):
-    """Phase 6: K2, K3 and K4 at llama-1b's training shapes and at
-    moe_trainer's (Mixtral's head dim 128) against their plain versions;
-    K3/K4 get the kernels' own lse and delta, so each is checked alone."""
+def check_flash_case(torch, gen, name, b, sq, sk, hq, hkv, d, segs,
+                     dt=None):
+    """K2, K3 and K4 on one causal case of seeded inputs in `dt` (bf16 by
+    default; v a strided view of a fused k|v tensor, as in training)
+    against their plain versions; K3/K4 get the kernels' own lse and
+    delta, so each is checked alone. bf16 within ATOL_O_BF16 +
+    RTOL_O_BF16 * |plain|, float32 within ATOL_HD_F32, lse within
+    ATOL_LSE. Returns (q, k, v, do, o, lse, delta, kw) and the errors."""
     from ray_tpu_torch.ops.flash_attention import (
         attention_delta, flash_attention, flash_attention_plain,
         flash_bwd_dkv, flash_bwd_dkv_plain, flash_bwd_dq, flash_bwd_dq_plain)
 
+    dt = dt or torch.bfloat16
+    bf16 = dt == torch.bfloat16
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dt)
+
+    def close(got, want):
+        return close_bf16(got, want) if bf16 else \
+            max_err(got, want) <= ATOL_HD_F32
+
+    q, kv, do = randn(b, sq, hq, d), randn(b, sk, 2 * hkv, d), \
+        randn(b, sq, hq, d)
+    k, v = kv[:, :, :hkv].contiguous(), kv[:, :, hkv:]
+    kw = dict(causal=True, q_seg=None if segs is None else segs[0],
+              kv_seg=None if segs is None else segs[1], scale=d ** -0.5)
+    o, lse = flash_attention(q, k, v, causal=True, segment_ids=segs,
+                             return_lse=True)
+    o_p, lse_p = flash_attention_plain(q, k, v, **kw)
+    delta = attention_delta(o, do)
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    dq_p = flash_bwd_dq_plain(q, k, v, do, lse, delta, **kw)
+    dk_p, dv_p = flash_bwd_dkv_plain(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    errs = {"o": max_err(o, o_p), "lse": max_err(lse, lse_p),
+            "dq": max_err(dq, dq_p), "dk": max_err(dk, dk_p),
+            "dv": max_err(dv, dv_p)}
+    tol = (f"{ATOL_O_BF16} + {RTOL_O_BF16}*|plain|" if bf16 else
+           f"{ATOL_HD_F32}, float32")
+    log(f"{name} (B={b} Sq={sq} Sk={sk} Hq={hq} Hkv={hkv} D={d}): "
+        + ", ".join(f"max|{n}| err {e:.3e}" for n, e in errs.items())
+        + f" (tolerance {tol}; lse atol {ATOL_LSE})")
+    assert close(o, o_p) and errs["lse"] <= ATOL_LSE, f"{name}: K2 disagrees"
+    assert close(dq, dq_p), f"{name}: K3 disagrees"
+    assert close(dk, dk_p) and close(dv, dv_p), f"{name}: K4 disagrees"
+    for t in (o, dq, dk, dv):
+        assert torch.isfinite(t).all(), f"{name}: not finite"
+    return (q, k, v, do, o, lse, delta, kw), errs
+
+
+def check_training_kernels(torch, flush):
+    """Phase 6: K2, K3 and K4 at llama-1b's training shapes and at
+    moe_trainer's (Mixtral's head dim 128) against their plain versions
+    (check_flash_case)."""
+    from ray_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_plain, flash_bwd_dkv,
+        flash_bwd_dkv_plain, flash_bwd_dq, flash_bwd_dq_plain)
+
     dev = torch.device("cuda")
-    bf16 = torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(6)
     b, s, hq, hkv, d = 4, 2048, 32, 8, 64
     scale = d ** -0.5
 
-    def randn(*shape):
-        return torch.randn(shape, generator=gen, device=dev).to(bf16)
-
     def run(name, sq, sk, segs, b=b, hq=hq, hkv=hkv, d=d):
-        scale = d ** -0.5
-        # v is a strided view of a fused k|v tensor, as in training
-        q, kv, do = randn(b, sq, hq, d), randn(b, sk, 2 * hkv, d), \
-            randn(b, sq, hq, d)
-        k, v = kv[:, :, :hkv].contiguous(), kv[:, :, hkv:]
-        kw = dict(causal=True, q_seg=None if segs is None else segs[0],
-                  kv_seg=None if segs is None else segs[1], scale=scale)
-        o, lse = flash_attention(q, k, v, causal=True, segment_ids=segs,
-                                 return_lse=True)
-        o_p, lse_p = flash_attention_plain(q, k, v, **kw)
-        delta = attention_delta(o, do)
-        dq = flash_bwd_dq(q, k, v, do, lse, delta, **kw)
-        dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
-        dq_p = flash_bwd_dq_plain(q, k, v, do, lse, delta, **kw)
-        dk_p, dv_p = flash_bwd_dkv_plain(q, k, v, do, lse, delta, **kw)
-        torch.cuda.synchronize()
-        errs = {"o": max_err(o, o_p), "lse": max_err(lse, lse_p),
-                "dq": max_err(dq, dq_p), "dk": max_err(dk, dk_p),
-                "dv": max_err(dv, dv_p)}
-        log(f"{name} (B={b} Sq={sq} Sk={sk} Hq={hq} Hkv={hkv} D={d}): "
-            + ", ".join(f"max|{n}| err {e:.3e}" for n, e in errs.items())
-            + f" (tolerance {ATOL_O_BF16} + {RTOL_O_BF16}*|plain|; lse "
-            f"atol {ATOL_LSE})")
-        assert close_bf16(o, o_p) and errs["lse"] <= ATOL_LSE, \
-            f"{name}: K2 disagrees"
-        assert close_bf16(dq, dq_p), f"{name}: K3 disagrees"
-        assert close_bf16(dk, dk_p) and close_bf16(dv, dv_p), \
-            f"{name}: K4 disagrees"
-        for t in (dq, dk, dv):
-            assert torch.isfinite(t).all(), f"{name}: non-finite gradient"
-        return (q, k, v, do, o, lse, delta, kw), errs
+        return check_flash_case(torch, gen, name, b, sq, sk, hq, hkv, d,
+                                segs)
 
     # packed rows (documents of 512, 1024 and 512 tokens, and 2048) and
     # chunked-prefill-like rows (512 queries at the end of 2048 keys)
@@ -2417,12 +2459,30 @@ def run_moe_trainer(torch, reset_counts):
     return out
 
 
+def first_prefill_logits(torch, cfg, sd, dev, ids):
+    """Float32 logits (on the CPU) of the first prefill of ids [1, n],
+    n <= 256, through the paged path (K2's self part) of a float32 model
+    of `cfg` with state dict `sd` on `dev`."""
+    from ray_tpu_torch.models.convert import build_model
+    from ray_tpu_torch.models.llama import PagedCache
+
+    n = ids.shape[1]
+    model = build_model(cfg, sd, dev, torch.float32)
+    pool = torch.zeros((cfg.num_layers, 32, cfg.num_kv_heads, 16,
+                        2 * cfg.head_dim_), device=dev)
+    bt = torch.arange(1, 17, dtype=torch.int32, device=dev)[None]
+    cache = PagedCache(pool, bt, torch.tensor([n], dtype=torch.int32,
+                                              device=dev))
+    with torch.inference_mode():
+        return model(torch.from_numpy(ids).to(dev),
+                     torch.arange(n, device=dev)[None], cache).float().cpu()
+
+
 def check_reference(torch):
     """Phase 5: float32, llama3-8b width, 2 layers; the kernel path on the
     card against the plain path on the CPU, same weights."""
     from ray_tpu_torch.models.config import get_config
-    from ray_tpu_torch.models.convert import build_model, init_params
-    from ray_tpu_torch.models.llama import PagedCache
+    from ray_tpu_torch.models.convert import init_params
     from ray_tpu_torch.serve.llm import EngineConfig, LLMEngine
     from ray_tpu_torch.serve.llm import SamplingParams as SP
 
@@ -2435,21 +2495,9 @@ def check_reference(torch):
 
     # first-prefill logits through the paged path (K2 self part)
     rng = np.random.default_rng(2)
-    n = 200
-    ids = rng.integers(0, cfg.vocab_size, (1, n))
-    logits = {}
-    for dev, sd in (("cuda", sd_gpu), ("cpu", sd_cpu)):
-        model = build_model(cfg, sd, dev, torch.float32)
-        pool = torch.zeros((cfg.num_layers, 32, cfg.num_kv_heads, 16,
-                            2 * cfg.head_dim_), device=dev)
-        bt = torch.arange(1, 17, dtype=torch.int32, device=dev)[None]
-        cache = PagedCache(pool, bt, torch.tensor([n], dtype=torch.int32,
-                                                  device=dev))
-        with torch.inference_mode():
-            logits[dev] = model(torch.from_numpy(ids).to(dev),
-                                torch.arange(n, device=dev)[None],
-                                cache).float().cpu()
-        del model
+    ids = rng.integers(0, cfg.vocab_size, (1, 200))
+    logits = {dev: first_prefill_logits(torch, cfg, sd, dev, ids)
+              for dev, sd in (("cuda", sd_gpu), ("cpu", sd_cpu))}
     err = max_err(logits["cuda"], logits["cpu"])
     log(f"f32 first-prefill logits (2 layers, 8B width): max|kernel path - "
         f"plain path| = {err:.3e} (atol {ATOL_LOGITS_F32})")
@@ -3317,6 +3365,364 @@ def run_entry(torch, smi):
             "max_abs_logit": scale, "card": smi}
 
 
+# ---------------------------------------------------------------------
+# Phase head_dims: the head dims K1-K4 take beside CONFIGS' 16, 64 and
+# 128, at the widths of models that have them, as get_config overrides of
+# llama3-8b (no entry of CONFIGS). Phi-3-mini (D 96, 3.82 B parameters,
+# microsoft/Phi-3-mini-4k-instruct's config.json; its sliding window of
+# 2047 tokens is not LlamaConfig's, so no sequence here is longer); a
+# Llama block at Gemma-2-9B's attention widths (D 256, q width 4096 beside
+# a hidden size of 3584; Gemma-2's GeGLU, soft-capping, sandwich norms
+# and local layers are not LlamaConfig's); and a small Llama at D 32.
+PHI3_MINI = dict(vocab_size=32064, hidden_size=3072, intermediate_size=8192,
+                 num_layers=32, num_heads=32, num_kv_heads=32, head_dim=96,
+                 rope_theta=10000.0, rms_norm_eps=1e-5)
+GEMMA2_9B_ATTN = dict(vocab_size=256000, hidden_size=3584,
+                      intermediate_size=14336, num_heads=16, num_kv_heads=8,
+                      head_dim=256)
+SMALL_D32 = dict(vocab_size=32000, hidden_size=256, intermediate_size=688,
+                 num_heads=8, num_kv_heads=4, head_dim=32)
+HEAD_DIM_WIDTHS = {32: SMALL_D32, 96: PHI3_MINI, 256: GEMMA2_9B_ATTN}
+# float32 kernels against their plain versions at these shapes (sums over
+# up to 2048 kv rows or 2 x 2048 q rows in another order, values up to
+# ~10): absolute
+ATOL_HD_F32 = 1e-3
+# layers of the engines and trainers at the D 256 and D 32 widths, and of
+# the trainers at D 96 (Phi-3-mini serves at all 32)
+HD_LAYERS = 4
+HD_TRAIN_STEPS = 3
+
+
+def hd_decode_row(torch, flush, d, hq, hkv, dt):
+    """K1 at head dim d (phase 3's ragged lengths, NaN outside the live
+    rows, pages of 16) against its plain version: its row."""
+    from ray_tpu_torch.ops.paged_attention import (
+        paged_attention_decode, paged_attention_decode_plain, paged_write)
+
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    page, mp = 16, 128
+    lengths = [0, 1, 15, 16, 17, 300, 1000, 2047]
+    b = len(lengths)
+    num_pages = 1 + b * mp
+    pool = torch.full((num_pages, hkv, page, 2 * d), float("nan"),
+                      dtype=dt, device="cuda")
+    perm = torch.randperm(num_pages - 1, generator=gen, device="cuda") + 1
+    bt = perm[: b * mp].reshape(b, mp).to(torch.int32)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    kd, vd = (torch.randn((b, mp * page, hkv, d), generator=gen,
+                          device="cuda").to(dt) for _ in range(2))
+    pos = torch.arange(mp * page, device="cuda").expand(b, -1)
+    paged_write(pool, kd, vd, bt, pos, lens)
+    del kd, vd
+    q = torch.randn((b, hq, d), generator=gen, device="cuda").to(dt)
+    scale = d ** -0.5
+    got = paged_attention_decode(q, pool, bt, lens)
+    want = paged_attention_decode_plain(q, pool, bt, lens, scale=scale)
+    torch.cuda.synchronize()
+    err = max_err(got, want)
+    assert torch.isfinite(got).all() and (got[0] == 0).all(), \
+        f"K1 at D {d} ({dt}): non-finite, or a length-0 row not zero"
+    ok = close_bf16(got, want) if dt == torch.bfloat16 else \
+        err <= ATOL_HD_F32
+    assert ok, f"K1 at D {d} ({dt}) disagrees: {err:.3e}"
+    size = 2 if dt == torch.bfloat16 else 4
+    return dict(
+        max_abs_err=err, parent_ms=None,
+        ms=time_ms(lambda: paged_attention_decode(q, pool, bt, lens),
+                   flush=flush),
+        plain_ms=time_ms(lambda: paged_attention_decode_plain(
+            q, pool, bt, lens, scale=scale), iters=3, flush=flush),
+        library_ms=None,
+        bytes=sum(lengths) * hkv * 2 * d * size + 2 * q.numel() * size
+        + bt.numel() * 4 + lens.numel() * 4,
+        flops=4 * sum(lengths) * hq * d,
+        peak_flops=BF16_FLOPS if dt == torch.bfloat16 else F32_FLOPS)
+
+
+def hd_flash_rows(torch, flush, d, hq, hkv, dt):
+    """K2, K3 and K4 at head dim d against their plain versions (B 2, S
+    2048: causal, packed segments, and 512 queries over 2048 keys;
+    check_flash_case), timed on the causal case beside SDPA where it takes
+    the shape: their rows."""
+    from ray_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_plain, flash_bwd_dkv,
+        flash_bwd_dkv_plain, flash_bwd_dq, flash_bwd_dq_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(100 + d)
+    b, s = 2, 2048
+    bf16 = dt == torch.bfloat16
+    seg = torch.tensor([0] * 512 + [1] * 1024 + [2] * 512,
+                       dtype=torch.int32, device="cuda")
+    segs = torch.stack([seg, seg.flip(0)])
+    errs = {}
+    for name, sq, sg in (("packed segments", s, (segs, segs)),
+                         ("sq < sk", 512, None), ("causal", s, None)):
+        case, e = check_flash_case(torch, gen, f"  D {d} {dt} {name}", b,
+                                   sq, s, hq, hkv, d, sg, dt)
+        errs["fwd"] = max(errs.get("fwd", 0.0), e["o"], e["lse"])
+        errs["dq"] = max(errs.get("dq", 0.0), e["dq"])
+        errs["dkv"] = max(errs.get("dkv", 0.0), e["dk"], e["dv"])
+    q, k, v, do, _, lse, delta, kw = case  # the causal case, timed
+
+    # SDPA on the same inputs where it takes them: forward, and the
+    # backward alone (dq, dk, dv in one call), as phase 6 times them
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q_t, k_t, v_t = (x.transpose(1, 2).detach().requires_grad_()
+                     for x in (q, k, v))
+    try:
+        out_t = sdpa(q_t, k_t, v_t, is_causal=True, enable_gqa=True)
+        sdpa_bwd = sorted(time_windows(lambda: torch.autograd.grad(
+            out_t, (q_t, k_t, v_t), do.transpose(1, 2), retain_graph=True),
+            iters=5))[1]
+        with torch.no_grad():
+            sdpa_fwd = time_ms(lambda: sdpa(q_t, k_t, v_t, is_causal=True,
+                                            enable_gqa=True), flush=flush)
+        del out_t
+    except RuntimeError as exc:  # no SDPA backend takes this shape
+        log(f"  SDPA at D {d} {dt}: {str(exc).splitlines()[0]}")
+        sdpa_fwd = sdpa_bwd = None
+    live = b * hq * s * (s + 1) // 2
+    size = 2 if bf16 else 4
+    qb, kb, vec = q.numel() * size, k.numel() * size, lse.numel() * 4
+    peak = BF16_FLOPS if bf16 else F32_FLOPS
+    plain = dict(iters=3, warmup=1, flush=flush)
+    return {
+        "flash_fwd": dict(
+            max_abs_err=errs["fwd"], parent_ms=None, peak_flops=peak,
+            ms=time_ms(lambda: flash_attention(q, k, v, causal=True,
+                                               return_lse=True), flush=flush),
+            plain_ms=time_ms(lambda: flash_attention_plain(q, k, v, **kw),
+                             **plain),
+            library_ms=sdpa_fwd, bytes=2 * qb + 2 * kb + vec,
+            flops=2 * 2 * d * live),
+        "flash_bwd_dq": dict(
+            max_abs_err=errs["dq"], parent_ms=None, peak_flops=peak,
+            ms=time_ms(lambda: flash_bwd_dq(q, k, v, do, lse, delta, **kw),
+                       flush=flush),
+            plain_ms=time_ms(lambda: flash_bwd_dq_plain(
+                q, k, v, do, lse, delta, **kw), **plain),
+            library_ms=sdpa_bwd, bytes=3 * qb + 2 * kb + 2 * vec,
+            flops=3 * 2 * d * live),
+        # K4's bound counts its four products; at D 256 the bf16 kernel
+        # runs six (S and dP in each of its two column halves)
+        "flash_bwd_dkv": dict(
+            max_abs_err=errs["dkv"], parent_ms=None, peak_flops=peak,
+            ms=time_ms(lambda: flash_bwd_dkv(q, k, v, do, lse, delta, **kw),
+                       flush=flush),
+            plain_ms=time_ms(lambda: flash_bwd_dkv_plain(
+                q, k, v, do, lse, delta, **kw), **plain),
+            library_ms=sdpa_bwd, bytes=2 * qb + 4 * kb + 2 * vec,
+            flops=4 * 2 * d * live)}
+
+
+def check_head_dim_kernels(torch, flush):
+    """K1-K4 at head dims 32, 96 and 256, in bf16 and float32, against
+    their plain versions at the widths' shapes (Hq/Hkv 8/4, 32/32, 16/8):
+    rows keyed "<kernel>_d<D>", the bf16 numbers first and the float32
+    ones under "f32"."""
+    rows = {}
+    for d, width in HEAD_DIM_WIDTHS.items():
+        hq, hkv = width["num_heads"], width["num_kv_heads"]
+        per_type = {}
+        for dt in (torch.bfloat16, torch.float32):
+            r = {"paged_decode": hd_decode_row(torch, flush, d, hq, hkv, dt),
+                 **hd_flash_rows(torch, flush, d, hq, hkv, dt)}
+            log(f"head dim {d}, {dt}:")
+            add_bounds(r)
+            per_type[dt] = r
+            torch.cuda.empty_cache()
+        for kname, row in per_type[torch.bfloat16].items():
+            f32 = per_type[torch.float32][kname]
+            row["f32"] = {k: f32[k] for k in (
+                "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+                "bound_by", "tflops", "bound_share")}
+            rows[f"{kname}_d{d}"] = row
+    return rows
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """Attention through the plain versions of K2, K3 and K4 on the card:
+    the wrappers' launch and the backward's two kernels swapped for them
+    (nothing launched, nothing counted), restored on exit."""
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    saved = fa._launch, fa.flash_bwd_dq, fa.flash_bwd_dkv
+    fa._launch = fa.flash_attention_plain
+    fa.flash_bwd_dq, fa.flash_bwd_dkv = fa.flash_bwd_dq_plain, \
+        fa.flash_bwd_dkv_plain
+    try:
+        yield
+    finally:
+        fa._launch, fa.flash_bwd_dq, fa.flash_bwd_dkv = saved
+
+
+def hd_train(torch, reset_counts, d, dtype, plain):
+    """HD_TRAIN_STEPS ShardedTrainer steps at the width of head dim d,
+    HD_LAYERS layers, params float32, compute `dtype`, on one batch of 2 x
+    1024 seeded tokens from seeded weights; with `plain`, attention
+    through the plain versions. Returns (losses, grad norms, step ms,
+    launches)."""
+    from ray_tpu_torch.models.config import get_config
+    from ray_tpu_torch.models.llama import LlamaModel
+    from ray_tpu_torch.ops.flash_attention import flash_attention
+    from ray_tpu_torch.parallel.train_lib import (ShardedTrainer,
+                                                  default_optimizer)
+
+    cfg = get_config("llama3-8b", **{**HEAD_DIM_WIDTHS[d],
+                                     "num_layers": HD_LAYERS}, dtype=dtype)
+    with torch.device("meta"):
+        model = LlamaModel(cfg)
+    trainer = ShardedTrainer(model, optimizer=default_optimizer(warmup=1))
+    rng = np.random.default_rng(20 + d)
+    batch = {"input_ids": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (2, 1024), dtype=np.int32)).cuda()}
+    state = trainer.init(torch.Generator(device="cuda").manual_seed(d),
+                         batch)
+    losses, gnorms, step_ms = [], [], []
+    with plain_attention() if plain else contextlib.nullcontext():
+        reset_counts()  # the main path's run starts here
+        for _ in range(HD_TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = trainer.step(state, batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["grad_norm"]))
+        launches = (flash_attention.launches, flash_attention.dq_launches,
+                    flash_attention.dkv_launches)
+    n_params = sum(p.numel() for p in state.params.values())
+    del trainer, model, state, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses, gnorms, step_ms, launches, n_params
+
+
+def hd_reference(torch, d):
+    """Phase 5 at the width of head dim d with 2 layers in float32: first-
+    prefill logits and the greedy tokens of the parity prompts, the kernel
+    path on the card against the plain path on the CPU, same weights."""
+    from ray_tpu_torch.models.config import get_config
+    from ray_tpu_torch.models.convert import init_params
+    from ray_tpu_torch.serve.llm import EngineConfig, LLMEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    overrides = {**HEAD_DIM_WIDTHS[d], "num_layers": 2}
+    cfg = get_config("llama3-8b", **overrides)
+    gen = torch.Generator(device="cuda").manual_seed(30 + d)
+    sd = {"cuda": init_params(cfg, gen, "cuda", torch.float32)}
+    sd["cpu"] = {k: t.cpu() for k, t in sd["cuda"].items()}
+    ids = np.random.default_rng(31).integers(0, cfg.vocab_size, (1, 200))
+    logits, tokens = {}, {}
+    for dev in ("cuda", "cpu"):
+        logits[dev] = first_prefill_logits(torch, cfg, sd[dev], dev, ids)
+        engine = LLMEngine(EngineConfig(
+            model="llama3-8b", model_overrides=overrides, dtype="float32",
+            page_size=16, num_pages=64, max_model_len=256, max_batch=4,
+            decode_steps_per_dispatch=4, prefill_buckets=(32, 64, 128, 256),
+            device=dev), params=sd.pop(dev))
+        tokens[dev] = greedy_parity(engine)
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    err = max_err(logits["cuda"], logits["cpu"])
+    log(f"f32 reference at D {d} (2 layers): first-prefill max|kernel path "
+        f"- plain path| {err:.3e} (atol {ATOL_LOGITS_F32}); greedy parity "
+        f"tokens card {tokens['cuda']}, CPU {tokens['cpu']}")
+    assert torch.isfinite(logits["cuda"]).all()
+    assert err <= ATOL_LOGITS_F32, f"D {d}: kernel-path logits disagree"
+    assert tokens["cuda"] == tokens["cpu"], f"D {d}: greedy tokens differ"
+    return {"logits_max_abs_err": err, "parity_tokens": tokens["cuda"]}
+
+
+def run_head_dims(torch, smi):
+    """Phase head_dims: K1-K4 at head dims 32, 96 and 256 against their
+    plain versions; Phi-3-mini's widths served at full depth in bf16 with
+    phase 4's traffic, the D 256 and D 32 widths at HD_LAYERS layers; phase
+    5's check at D 96 and D 256; ShardedTrainer steps at the three widths
+    in bf16 and float32 on the kernel path, held to the plain path on the
+    card. Returns the kernel rows (launches from the served and trained
+    runs) and the phase's numbers."""
+    from ray_tpu_torch.ops.flash_attention import flash_attention
+    from ray_tpu_torch.ops.paged_attention import paged_attention_decode
+
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
+    rows = check_head_dim_kernels(torch, flush)
+    del flush
+    launches = {d: dict.fromkeys(("paged_decode", "flash_fwd",
+                                  "flash_bwd_dq", "flash_bwd_dkv"), 0)
+                for d in HEAD_DIM_WIDTHS}
+
+    def reset_counts():
+        paged_attention_decode.launches = 0
+        flash_attention.launches = 0
+        flash_attention.segment_launches = 0
+        flash_attention.dq_launches = 0
+        flash_attention.dkv_launches = 0
+
+    out = {"engine": {}, "reference": {}, "train": {}, "card": smi}
+    for d in (96, 256, 32):
+        overrides = dict(HEAD_DIM_WIDTHS[d])
+        if d != 96:
+            overrides["num_layers"] = HD_LAYERS
+        engine, eng = run_engine(torch, reset_counts,
+                                 model_overrides=overrides)
+        counts = {"paged_decode": paged_attention_decode.launches,
+                  "flash_fwd": flash_attention.launches}
+        layers = engine.model_cfg.num_layers
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"engine at D {d} ({layers} layers, bf16): TTFT ms "
+            f"{json.dumps(eng['ttft_ms'])}; decode {eng['decode_tok_s']:.1f} "
+            f"tok/s; kernel launches {json.dumps(counts)}")
+        for kname, c in counts.items():
+            assert c > 0, f"{kname} at D {d} was never launched"
+            launches[d][kname] += c
+        out["engine"][d] = {"layers": layers, **{k: eng[k] for k in (
+            "ttft_ms", "decode_tok_s", "wall_s")}, "launches": counts}
+    for d in (96, 256):
+        out["reference"][d] = hd_reference(torch, d)
+    for d in (96, 256, 32):
+        for dtype, (rtol_loss, rtol_gnorm) in (
+                ("bfloat16", (RTOL_PP_LOSS, RTOL_PP_GNORM)),
+                ("float32", (RTOL_MESH_LOSS, RTOL_MESH_GNORM))):
+            loss, gnorm, step_ms, counts, n_params = hd_train(
+                torch, reset_counts, d, dtype, plain=False)
+            loss_p, gnorm_p, step_ms_p, counts_p, _ = hd_train(
+                torch, reset_counts, d, dtype, plain=True)
+            loss_err = max(abs(a - b) / abs(b) for a, b in zip(loss, loss_p))
+            gn_err = max(abs(a - b) / abs(b) for a, b in zip(gnorm, gnorm_p))
+            log(f"train at D {d}, {dtype} ({HD_LAYERS} layers, "
+                f"{n_params / 1e9:.3f} B params, 2 x 1024 tokens): losses "
+                f"{loss} (plain path {loss_p}, max rel err {loss_err:.2e}, "
+                f"rtol {rtol_loss}); grad norms {gnorm} (plain {gnorm_p}, "
+                f"max rel err {gn_err:.2e}, rtol {rtol_gnorm}); step ms "
+                f"{[round(t, 1) for t in step_ms]} (plain "
+                f"{[round(t, 1) for t in step_ms_p]}); K2/K3/K4 launches "
+                f"{counts}")
+            want = (2 * HD_LAYERS * HD_TRAIN_STEPS,  # forward + remat
+                    HD_LAYERS * HD_TRAIN_STEPS, HD_LAYERS * HD_TRAIN_STEPS)
+            assert counts == want, f"D {d} {dtype}: launches {counts}"
+            assert counts_p == (0, 0, 0), "the plain path launched a kernel"
+            assert all(math.isfinite(x) for x in loss + gnorm)
+            assert loss_err <= rtol_loss and gn_err <= rtol_gnorm, \
+                f"D {d} {dtype}: the kernel path's steps disagree"
+            for kname, c in zip(("flash_fwd", "flash_bwd_dq",
+                                 "flash_bwd_dkv"), counts):
+                launches[d][kname] += c
+            out["train"][f"{d}_{dtype}"] = {
+                "params": n_params, "losses": loss, "plain_losses": loss_p,
+                "grad_norms": gnorm, "plain_grad_norms": gnorm_p,
+                "step_ms": step_ms, "plain_step_ms": step_ms_p}
+    for d, counts in launches.items():
+        for kname, c in counts.items():
+            rows[f"{kname}_d{d}"]["launches"] = c
+    return rows, out
+
+
 def child_processes() -> list:
     """The pids of the processes whose parent is this one (from /proc)."""
     kids = []
@@ -3560,6 +3966,15 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # 11. K1-K4 at head dims 32, 96 and 256, and the widths that have them
+    # served and trained; each row's launches from its own main paths
+    hd_rows, head_dims = run_phase("head_dims", DEADLINES_S["head_dims"],
+                                   run_head_dims, torch, smi)
+    kernels.update(hd_rows)
+    counts.update({kname: r["launches"] for kname, r in hd_rows.items()})
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # every process the run started has ended: pp_engine's spawn server
     # and its resource tracker would outlive the exit by a moment
     # otherwise (the ranks ended inside spawn)
@@ -3584,6 +3999,12 @@ def main() -> int:
                                 "ray_tpu/ops/flash_attention.py:178"),
                "flash_bwd_dkv": ("ray_tpu_torch/ops/csrc/flash_bwd.cu",
                                  "ray_tpu/ops/flash_attention.py:228")}
+    sources.update({f"{kname}_d{d}": sources[base]
+                    for kname, base in (("paged_decode", "paged_decode"),
+                                        ("flash_fwd", "flash_fwd_train"),
+                                        ("flash_bwd_dq", "flash_bwd_dq"),
+                                        ("flash_bwd_dkv", "flash_bwd_dkv"))
+                    for d in HEAD_DIM_WIDTHS})
     line = {"kernels": [
         {"name": kname, "route": "cuda", "source": sources[kname][0],
          "replaces": sources[kname][1], "launches": counts[kname],
@@ -3592,7 +4013,8 @@ def main() -> int:
          "bound_by": r["bound_by"], "library_ms": r["library_ms"],
          "tflops": r["tflops"], "bound_share": r["bound_share"],
          "parent_ms": r["parent_ms"],
-         **{k: r[k] for k in ("decode_us", "merge_us", "bf16") if k in r}}
+         **{k: r[k] for k in ("decode_us", "merge_us", "bf16", "f32")
+            if k in r}}
         for kname, r in kernels.items()],
         "engine": {"ttft_ms": eng["ttft_ms"],
                    "decode_tok_s": eng["decode_tok_s"],
@@ -3605,7 +4027,8 @@ def main() -> int:
             "sharding", "collective_host_us")},
         "pp_engine": pp_eng, "dense_cache": dense,
         "engine_v2": engine_v2, "moe": moe, "train": train,
-        "rllib": rllib, "entry": entry_out, "card": smi}
+        "rllib": rllib, "entry": entry_out, "head_dims": head_dims,
+        "card": smi}
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

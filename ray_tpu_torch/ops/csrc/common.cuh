@@ -15,6 +15,16 @@
 
 enum { DTYPE_F32 = 0, DTYPE_BF16 = 1 };
 
+// The head dims every kernel is built for, as a switch's cases returning
+// L(D): the wrappers' KERNEL_HEAD_DIMS and DECODE_HEAD_DIMS_BF16
+#define HEAD_DIM_CASES(L) \
+  case 16: return L(16);  \
+  case 32: return L(32);  \
+  case 64: return L(64);  \
+  case 96: return L(96);  \
+  case 128: return L(128); \
+  case 256: return L(256);
+
 template <typename T>
 __device__ __forceinline__ float to_f32(T x);
 template <>

@@ -27,6 +27,10 @@
 //     tiles from the causal start, so dk and dv accumulate for the whole
 //     GQA group in float32 registers: the TPU version's per-q-head f32
 //     partials [B, Hq, Sk, D] and their group sum never touch HBM.
+// Head dims 16, 32, 64, 96, 128 and 256, each its own instance of both
+// variants; at D 256 the float32 variants take 32-row tiles of their own
+// rows (shared memory) and the bf16 K4 splits dK's and dV's columns over
+// two blocks (registers): see each kernel.
 // Two variants each, chosen by the input type, as in K2: an exact
 // scalar-FMA float32 variant (256 threads, 4x4 patches) and, in bf16, a
 // variant built for Hopper: wgmma with TMA through an mbarrier ring, p
@@ -66,10 +70,12 @@ struct BwdParams {
   float scale;
 };
 
-// number of kv tiles a q tile starting at q0 reads (K2's causal bound)
-__device__ __forceinline__ int kv_tiles(const BwdParams& p, int q0) {
+// number of kv tiles a q tile of `rows` rows starting at q0 reads (K2's
+// causal bound)
+__device__ __forceinline__ int kv_tiles(const BwdParams& p, int q0,
+                                        int rows = kBQ) {
   int n = (p.sk + kBK - 1) / kBK;
-  if (p.causal) n = min(n, (q0 + kBQ + (p.sk - p.sq) + kBK - 1) / kBK);
+  if (p.causal) n = min(n, (q0 + rows + (p.sk - p.sq) + kBK - 1) / kBK);
   return n;
 }
 
@@ -93,22 +99,48 @@ __device__ __forceinline__ size_t row_index(const BwdParams& p, int b,
 
 // ---------------------------------------------------------------------
 // float32 variants: scalar FMAs on float32 tiles (padded rows, no bank
-// conflicts on the column walks).
+// conflicts on the column walks). A block's own tile (q rows for K3, kv
+// rows for K4) has f32_rows<D>() rows: 64, or 32 at D 256, where four
+// 64-row float32 tiles and the score tile (279,808 bytes for K3, 297,216
+// for K4) would pass the 232,448 a block may use. The other tile stays 64
+// rows, and each thread owns a (rows / 16) x 4 patch of the score tile.
+
+template <int D>
+__host__ __device__ constexpr int f32_rows() {
+  return D > 128 ? 32 : 64;
+}
+
+// K3's float32 shared memory: q, do [BQ][D+1]; k, v [kBK][D+1]; ds
+template <int D>
+__host__ __device__ constexpr size_t dq_f32_smem() {
+  constexpr size_t bq = f32_rows<D>();
+  return sizeof(float) * ((2 * bq + 2 * kBK) * (D + 1) + bq * (kBK + 1));
+}
+
+// K4's: k, v [BK][D+1]; q, do [kBQ][D+1]; p, ds [BK][kBQ+1]; 3 vectors
+template <int D>
+__host__ __device__ constexpr size_t dkv_f32_smem() {
+  constexpr size_t bk = f32_rows<D>();
+  return sizeof(float) * ((2 * bk + 2 * kBQ) * (D + 1) + 2 * bk * (kBQ + 1) +
+                          3 * kBQ);
+}
 
 template <int D>
 __global__ void __launch_bounds__(kThreads) bwd_dq_f32(BwdParams p) {
   constexpr int DS = D + 1, PS = kBK + 1, DC = D / 16;
+  constexpr int BQ = f32_rows<D>(), A = BQ / 16;  // q rows, rows a thread
+  static_assert(dq_f32_smem<D>() <= 232448, "K3 f32 shared memory");
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (p.hq / p.hkv);
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int q0 = qt * kBQ;
+  const int q0 = qt * BQ;
 
   extern __shared__ float smem[];
-  float* q_s = smem;             // [kBQ][DS]
-  float* do_s = q_s + kBQ * DS;  // [kBQ][DS]
-  float* k_s = do_s + kBQ * DS;  // [kBK][DS]
+  float* q_s = smem;             // [BQ][DS]
+  float* do_s = q_s + BQ * DS;   // [BQ][DS]
+  float* k_s = do_s + BQ * DS;   // [kBK][DS]
   float* v_s = k_s + kBK * DS;   // [kBK][DS]
-  float* ds_s = v_s + kBK * DS;  // [kBQ][PS]
+  float* ds_s = v_s + kBK * DS;  // [BQ][PS]
 
   const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
   const float* dout =
@@ -116,7 +148,7 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_f32(BwdParams p) {
   const float* k = static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh;
   const float* v = static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh;
 
-  for (int i = tid; i < kBQ * D; i += kThreads) {
+  for (int i = tid; i < BQ * D; i += kThreads) {
     const int r = i / D, e = i - r * D;
     const int qpos = q0 + r;
     const bool in = qpos < p.sq;
@@ -124,10 +156,10 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_f32(BwdParams p) {
     do_s[r * DS + e] = in ? dout[qpos * p.o_ss + e] : 0.f;
   }
 
-  float lse[4], delta[4], acc[4][DC];
-  int qs[4];
+  float lse[A], delta[A], acc[A][DC];
+  int qs[A];
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
+  for (int a = 0; a < A; ++a) {
     const int qpos = q0 + ty + 16 * a;
     const bool in = qpos < p.sq;
     lse[a] = in ? p.lse[row_index(p, b, qpos, h)] : 0.f;
@@ -138,7 +170,7 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_f32(BwdParams p) {
     for (int c = 0; c < DC; ++c) acc[a][c] = 0.f;
   }
 
-  const int n_kb = kv_tiles(p, q0);
+  const int n_kb = kv_tiles(p, q0, BQ);
   for (int kb = 0; kb < n_kb; ++kb) {
     const int k0 = kb * kBK;
     __syncthreads();  // the previous iteration is done with k_s and ds_s
@@ -152,16 +184,16 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_f32(BwdParams p) {
     __syncthreads();
 
     // S = Q K^T and dP = dO V^T for rows ty + 16a, cols tx + 16c
-    float s[4][4], dp[4][4];
+    float s[A][4], dp[A][4];
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
+    for (int a = 0; a < A; ++a)
 #pragma unroll
       for (int c = 0; c < 4; ++c) s[a][c] = dp[a][c] = 0.f;
 #pragma unroll 4
     for (int e = 0; e < D; ++e) {
-      float qa[4], oa[4], kc[4], vc[4];
+      float qa[A], oa[A], kc[4], vc[4];
 #pragma unroll
-      for (int a = 0; a < 4; ++a) {
+      for (int a = 0; a < A; ++a) {
         qa[a] = q_s[(ty + 16 * a) * DS + e];
         oa[a] = do_s[(ty + 16 * a) * DS + e];
       }
@@ -171,7 +203,7 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_f32(BwdParams p) {
         vc[c] = v_s[(tx + 16 * c) * DS + e];
       }
 #pragma unroll
-      for (int a = 0; a < 4; ++a)
+      for (int a = 0; a < A; ++a)
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           s[a][c] = fmaf(qa[a], kc[c], s[a][c]);
@@ -180,7 +212,7 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_f32(BwdParams p) {
     }
 
 #pragma unroll
-    for (int a = 0; a < 4; ++a) {
+    for (int a = 0; a < A; ++a) {
       const int qpos = q0 + ty + 16 * a;
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
@@ -198,21 +230,21 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_f32(BwdParams p) {
     // dQ += dS K for rows ty + 16a, cols tx + 16c
 #pragma unroll 4
     for (int j = 0; j < kBK; ++j) {
-      float da[4];
+      float da[A];
 #pragma unroll
-      for (int a = 0; a < 4; ++a) da[a] = ds_s[(ty + 16 * a) * PS + j];
+      for (int a = 0; a < A; ++a) da[a] = ds_s[(ty + 16 * a) * PS + j];
 #pragma unroll
       for (int c = 0; c < DC; ++c) {
         const float kv = k_s[j * DS + tx + 16 * c];
 #pragma unroll
-        for (int a = 0; a < 4; ++a) acc[a][c] = fmaf(da[a], kv, acc[a][c]);
+        for (int a = 0; a < A; ++a) acc[a][c] = fmaf(da[a], kv, acc[a][c]);
       }
     }
   }
 
   float* dq = static_cast<float*>(p.dq);
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
+  for (int a = 0; a < A; ++a) {
     const int qpos = q0 + ty + 16 * a;
     if (qpos >= p.sq) continue;
     float* row = dq + row_index(p, b, qpos, h) * D;
@@ -224,25 +256,27 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_f32(BwdParams p) {
 template <int D>
 __global__ void __launch_bounds__(kThreads) bwd_dkv_f32(BwdParams p) {
   constexpr int DS = D + 1, PS = kBQ + 1, DC = D / 16;
+  constexpr int BK = f32_rows<D>(), A = BK / 16;  // kv rows, rows a thread
+  static_assert(dkv_f32_smem<D>() <= 232448, "K4 f32 shared memory");
   const int kt = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
   const int rep = p.hq / p.hkv;
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int k0 = kt * kBK;
+  const int k0 = kt * BK;
 
   extern __shared__ float smem[];
-  float* k_s = smem;               // [kBK][DS]
-  float* v_s = k_s + kBK * DS;     // [kBK][DS]
-  float* q_s = v_s + kBK * DS;     // [kBQ][DS]
+  float* k_s = smem;               // [BK][DS]
+  float* v_s = k_s + BK * DS;      // [BK][DS]
+  float* q_s = v_s + BK * DS;      // [kBQ][DS]
   float* do_s = q_s + kBQ * DS;    // [kBQ][DS]
-  float* p_s = do_s + kBQ * DS;    // [kBK][PS]: P^T
-  float* ds_s = p_s + kBK * PS;    // [kBK][PS]: dS^T
-  float* lse_s = ds_s + kBK * PS;  // [kBQ]
+  float* p_s = do_s + kBQ * DS;    // [BK][PS]: P^T
+  float* ds_s = p_s + BK * PS;     // [BK][PS]: dS^T
+  float* lse_s = ds_s + BK * PS;   // [kBQ]
   float* delta_s = lse_s + kBQ;    // [kBQ]
   int* qseg_s = reinterpret_cast<int*>(delta_s + kBQ);  // [kBQ]
 
   const float* k = static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh;
   const float* v = static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh;
-  for (int i = tid; i < kBK * D; i += kThreads) {
+  for (int i = tid; i < BK * D; i += kThreads) {
     const int r = i / D, e = i - r * D;
     const int kpos = k0 + r;
     const bool in = kpos < p.sk;
@@ -250,10 +284,10 @@ __global__ void __launch_bounds__(kThreads) bwd_dkv_f32(BwdParams p) {
     v_s[r * DS + e] = in ? v[kpos * p.v_ss + e] : 0.f;
   }
 
-  float dk[4][DC], dv[4][DC];
-  int ks[4];
+  float dk[A][DC], dv[A][DC];
+  int ks[A];
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
+  for (int a = 0; a < A; ++a) {
     const int kpos = k0 + ty + 16 * a;
     ks[a] = p.kseg != nullptr ? p.kseg[(size_t)b * p.sk + min(kpos, p.sk - 1)]
                               : 0;
@@ -289,16 +323,16 @@ __global__ void __launch_bounds__(kThreads) bwd_dkv_f32(BwdParams p) {
       __syncthreads();
 
       // S^T = K Q^T and dP^T = V dO^T: kv rows ty + 16a, q cols tx + 16c
-      float s[4][4], dp[4][4];
+      float s[A][4], dp[A][4];
 #pragma unroll
-      for (int a = 0; a < 4; ++a)
+      for (int a = 0; a < A; ++a)
 #pragma unroll
         for (int c = 0; c < 4; ++c) s[a][c] = dp[a][c] = 0.f;
 #pragma unroll 4
       for (int e = 0; e < D; ++e) {
-        float ka[4], va[4], qc[4], oc[4];
+        float ka[A], va[A], qc[4], oc[4];
 #pragma unroll
-        for (int a = 0; a < 4; ++a) {
+        for (int a = 0; a < A; ++a) {
           ka[a] = k_s[(ty + 16 * a) * DS + e];
           va[a] = v_s[(ty + 16 * a) * DS + e];
         }
@@ -308,7 +342,7 @@ __global__ void __launch_bounds__(kThreads) bwd_dkv_f32(BwdParams p) {
           oc[c] = do_s[(tx + 16 * c) * DS + e];
         }
 #pragma unroll
-        for (int a = 0; a < 4; ++a)
+        for (int a = 0; a < A; ++a)
 #pragma unroll
           for (int c = 0; c < 4; ++c) {
             s[a][c] = fmaf(ka[a], qc[c], s[a][c]);
@@ -317,7 +351,7 @@ __global__ void __launch_bounds__(kThreads) bwd_dkv_f32(BwdParams p) {
       }
 
 #pragma unroll
-      for (int a = 0; a < 4; ++a) {
+      for (int a = 0; a < A; ++a) {
         const int kpos = k0 + ty + 16 * a;
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
@@ -333,9 +367,9 @@ __global__ void __launch_bounds__(kThreads) bwd_dkv_f32(BwdParams p) {
       // dV += P^T dO and dK += dS^T Q: rows ty + 16a, cols tx + 16c
 #pragma unroll 4
       for (int j = 0; j < kBQ; ++j) {
-        float pa[4], da[4];
+        float pa[A], da[A];
 #pragma unroll
-        for (int a = 0; a < 4; ++a) {
+        for (int a = 0; a < A; ++a) {
           pa[a] = p_s[(ty + 16 * a) * PS + j];
           da[a] = ds_s[(ty + 16 * a) * PS + j];
         }
@@ -344,7 +378,7 @@ __global__ void __launch_bounds__(kThreads) bwd_dkv_f32(BwdParams p) {
           const float ov = do_s[j * DS + tx + 16 * c];
           const float qv = q_s[j * DS + tx + 16 * c];
 #pragma unroll
-          for (int a = 0; a < 4; ++a) {
+          for (int a = 0; a < A; ++a) {
             dv[a][c] = fmaf(pa[a], ov, dv[a][c]);
             dk[a][c] = fmaf(da[a], qv, dk[a][c]);
           }
@@ -356,7 +390,7 @@ __global__ void __launch_bounds__(kThreads) bwd_dkv_f32(BwdParams p) {
   float* dk_out = static_cast<float*>(p.dk);
   float* dv_out = static_cast<float*>(p.dv);
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
+  for (int a = 0; a < A; ++a) {
     const int kpos = k0 + ty + 16 * a;
     if (kpos >= p.sk) continue;
     const size_t row = (((size_t)b * p.sk + kpos) * p.hkv + hk) * D;
@@ -387,7 +421,22 @@ __global__ void __launch_bounds__(kThreads) bwd_dkv_f32(BwdParams p) {
 // dK and dV stay in float32 registers for the whole GQA group. The grid
 // runs the heaviest blocks first: kv tile 0 of every (kv head, batch
 // row), then tile 1, ...
+// At D 256 dK and dV would take 2 x 64 x 256 / 128 = 256 float32
+// registers a thread, more than the 255 a thread may hold before S and
+// dP. So each (kv tile, kv head, batch row) takes dkv_halves<D>() = 2
+// blocks, each owning NC = D / 2 of dK's and dV's columns: a block loads
+// the whole K, V, Q and dO tiles, recomputes S^T and dP^T over the whole
+// D (the products' depth), and runs dV and dK's products at N = NC into
+// 2 x 64 accumulators a thread, D 128's count. The cost: S^T and dP^T
+// are computed twice, 6 products of 2 x 64 x 64 x 256 FLOPs per (kv
+// tile, q tile) pair instead of 4 (1.5 x the operations of K4's bound),
+// and each tile is read by both blocks (the second read mostly from L2).
 constexpr int kWgThreads = 128;
+
+template <int D>  // blocks splitting dK's and dV's columns
+__host__ __device__ constexpr int dkv_halves() {
+  return D > 128 ? 2 : 1;
+}
 constexpr int kStages = 2;  // ring slots of (Q, dO, lse, delta, q segments)
 
 template <int D>
@@ -408,10 +457,14 @@ bwd_dkv_wgmma(const __grid_constant__ CUtensorMap kmap,
               const __grid_constant__ CUtensorMap qmap,
               const __grid_constant__ CUtensorMap omap, BwdParams p, int B) {
   using L = DkvSmem<D>;
-  constexpr int NO = D / 2;  // dk (and dv) accumulators per thread
+  constexpr int halves = dkv_halves<D>();
+  constexpr int NC = D / halves;  // this block's columns of dk and dv
+  constexpr int NO = NC / 2;      // dk (and dv) accumulators per thread
   constexpr int KK = D / 16;
-  const int kt = blockIdx.x / (p.hkv * B), rest = blockIdx.x % (p.hkv * B);
-  const int hk = rest % p.hkv, b = rest / p.hkv;
+  const int per_tile = p.hkv * B * halves;
+  const int kt = blockIdx.x / per_tile, rest = blockIdx.x % per_tile;
+  const int col0 = rest % halves * NC, hb = rest / halves;
+  const int hk = hb % p.hkv, b = hb / p.hkv;
   const int rep = p.hq / p.hkv;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, tq = lane & 3;
@@ -533,14 +586,14 @@ bwd_dkv_wgmma(const __grid_constant__ CUtensorMap kmap,
     fence_regs<NO>(dv);
 #pragma unroll
     for (int t = 0; t < kBQ / 16; ++t)
-      wgmma_rs<D>(dv, a[t], desc_mnmajor<D, kBQ>(ot, t), 1);
+      wgmma_rs<NC>(dv, a[t], desc_mnmajor<D, kBQ>(ot, t, col0), 1);
 #pragma unroll
     for (int t = 0; t < kBQ / 16; ++t) wg_frag(a[t], dp, t);
     wgmma_fence();
     fence_regs<NO>(dk);
 #pragma unroll
     for (int t = 0; t < kBQ / 16; ++t)
-      wgmma_rs<D>(dk, a[t], desc_mnmajor<D, kBQ>(qt, t), 1);
+      wgmma_rs<NC>(dk, a[t], desc_mnmajor<D, kBQ>(qt, t, col0), 1);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs<NO>(dv);
@@ -560,8 +613,8 @@ bwd_dkv_wgmma(const __grid_constant__ CUtensorMap kmap,
     if (kpos[rr] >= p.sk) continue;
     const size_t row = (((size_t)b * p.sk + kpos[rr]) * p.hkv + hk) * D;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      const int col = j * 8 + tq * 2;
+    for (int j = 0; j < NC / 8; ++j) {
+      const int col = col0 + j * 8 + tq * 2;
       *reinterpret_cast<uint32_t*>(dk_out + row + col) =
           pack_bf16(dk[4 * j + 2 * rr], dk[4 * j + 2 * rr + 1]);
       *reinterpret_cast<uint32_t*>(dv_out + row + col) =
@@ -784,7 +837,7 @@ int launch_dkv_wgmma(const BwdParams& p, int B, cudaStream_t stream) {
   const int smem = DkvSmem<D>::bytes + kSmemSlack;
   cudaFuncSetAttribute(bwd_dkv_wgmma<D>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  const int blocks = (p.sk + kBK - 1) / kBK * p.hkv * B;
+  const int blocks = (p.sk + kBK - 1) / kBK * p.hkv * B * dkv_halves<D>();
   bwd_dkv_wgmma<D><<<blocks, kWgThreads, smem, stream>>>(km, vm, qm, om, p,
                                                           B);
   return (int)cudaGetLastError();
@@ -802,22 +855,17 @@ int launch(Kernel kernel, dim3 grid, int threads, size_t smem,
 template <int D>
 int dq(int dtype, const BwdParams& p, int B, cudaStream_t s) {
   if (dtype == DTYPE_BF16) return launch_dq_wgmma<D>(p, B, s);
-  const dim3 grid((p.sq + kBQ - 1) / kBQ, p.hq, B);
-  return launch(bwd_dq_f32<D>, grid, kThreads,
-                sizeof(float) * ((size_t)(2 * kBQ + 2 * kBK) * (D + 1) +
-                                 (size_t)kBQ * (kBK + 1)),
-                p, s);
+  constexpr int bq = f32_rows<D>();
+  const dim3 grid((p.sq + bq - 1) / bq, p.hq, B);
+  return launch(bwd_dq_f32<D>, grid, kThreads, dq_f32_smem<D>(), p, s);
 }
 
 template <int D>
 int dkv(int dtype, const BwdParams& p, int B, cudaStream_t s) {
   if (dtype == DTYPE_BF16) return launch_dkv_wgmma<D>(p, B, s);
-  const dim3 grid((p.sk + kBK - 1) / kBK, p.hkv, B);
-  const size_t vecs = 3 * sizeof(float) * kBQ;  // lse, delta, q segments
-  return launch(bwd_dkv_f32<D>, grid, kThreads,
-                sizeof(float) * ((size_t)(2 * kBK + 2 * kBQ) * (D + 1) +
-                                 (size_t)2 * kBK * (kBQ + 1)) + vecs,
-                p, s);
+  constexpr int bk = f32_rows<D>();
+  const dim3 grid((p.sk + bk - 1) / bk, p.hkv, B);
+  return launch(bwd_dkv_f32<D>, grid, kThreads, dkv_f32_smem<D>(), p, s);
 }
 
 BwdParams make_params(const void* q, const void* k, const void* v,
@@ -849,7 +897,7 @@ bool valid_dtype(int dtype) {
 }  // namespace
 
 // strides: 12 element strides, (batch, seq, head) for q, k, v and do.
-// Head dims: those of the configs in CONFIGS (the wrapper refuses others).
+// Head dims: HEAD_DIM_CASES (common.cuh; the wrapper refuses others).
 extern "C" int flash_bwd_dq(int dtype, const void* q, const void* k,
                             const void* v, const void* dout, const void* lse,
                             const void* delta, const void* qseg,
@@ -862,12 +910,12 @@ extern "C" int flash_bwd_dq(int dtype, const void* q, const void* k,
                             hkv, strides, causal, scale);
   p.dq = dq_out;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define DQ(D) dq<D>(dtype, p, B, s)
   switch (d) {
-    case 16: return dq<16>(dtype, p, B, s);
-    case 64: return dq<64>(dtype, p, B, s);
-    case 128: return dq<128>(dtype, p, B, s);
+    HEAD_DIM_CASES(DQ)
     default: return (int)cudaErrorInvalidValue;
   }
+#undef DQ
 }
 
 extern "C" int flash_bwd_dkv(int dtype, const void* q, const void* k,
@@ -883,10 +931,10 @@ extern "C" int flash_bwd_dkv(int dtype, const void* q, const void* k,
   p.dk = dk_out;
   p.dv = dv_out;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define DKV(D) dkv<D>(dtype, p, B, s)
   switch (d) {
-    case 16: return dkv<16>(dtype, p, B, s);
-    case 64: return dkv<64>(dtype, p, B, s);
-    case 128: return dkv<128>(dtype, p, B, s);
+    HEAD_DIM_CASES(DKV)
     default: return (int)cudaErrorInvalidValue;
   }
+#undef DKV
 }

@@ -23,7 +23,9 @@
 //     on float32 tiles: one block per (64-row q tile, q head, batch row)
 //     of 256 threads, each owning a 4x4 patch of the score tile.
 // Both loop over 64-row kv tiles, and the causal bound ends the loop
-// early. Not done yet: warp specialisation (a producer warp and two
+// early. Head dims 16, 32, 64, 96, 128 and 256, each its own instance of
+// both variants (the bf16 tiles' layout for each is hopper.cuh's).
+// Not done yet: warp specialisation (a producer warp and two
 // consumer warpgroups with setmaxnreg) and overlapping one tile's softmax
 // with the next tile's S product; a TMA store of o; reading ctx pages
 // through the block table instead of a gathered copy.
@@ -427,28 +429,34 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
 }  // namespace
 
 // strides: 12 element strides, (batch, seq, head) for q, k, v and o.
-// Head dims: those of the configs in CONFIGS (the wrapper refuses others).
+// Head dims: HEAD_DIM_CASES (common.cuh; the wrapper refuses others). At
+// D 256 the bf16 variant's O accumulator is 128 registers a thread,
+// beside S's 32.
 extern "C" int flash_fwd(int dtype, const void* q, const void* k,
                          const void* v, void* o, void* lse, const void* qseg,
                          const void* kseg, int B, int sq, int sk, int hq,
                          int hkv, int d, const long long* strides, int causal,
                          float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define WGMMA(D)                                                          \
+  launch_wgmma<D>(q, k, v, o, lse, qseg, kseg, B, sq, sk, hq, hkv, strides, \
+                  causal, scale, s)
+#define SCALAR(D)                                                         \
+  launch<float, D>(q, k, v, o, lse, qseg, kseg, B, sq, sk, hq, hkv, strides, \
+                   causal, scale, s)
   if (dtype == DTYPE_BF16) {
     switch (d) {
-      case 16: return launch_wgmma<16>(q, k, v, o, lse, qseg, kseg, B, sq, sk, hq, hkv, strides, causal, scale, s);
-      case 64: return launch_wgmma<64>(q, k, v, o, lse, qseg, kseg, B, sq, sk, hq, hkv, strides, causal, scale, s);
-      case 128: return launch_wgmma<128>(q, k, v, o, lse, qseg, kseg, B, sq, sk, hq, hkv, strides, causal, scale, s);
+      HEAD_DIM_CASES(WGMMA)
       default: return (int)cudaErrorInvalidValue;
     }
   }
   if (dtype == DTYPE_F32) {
     switch (d) {
-      case 16: return launch<float, 16>(q, k, v, o, lse, qseg, kseg, B, sq, sk, hq, hkv, strides, causal, scale, s);
-      case 64: return launch<float, 64>(q, k, v, o, lse, qseg, kseg, B, sq, sk, hq, hkv, strides, causal, scale, s);
-      case 128: return launch<float, 128>(q, k, v, o, lse, qseg, kseg, B, sq, sk, hq, hkv, strides, causal, scale, s);
+      HEAD_DIM_CASES(SCALAR)
       default: return (int)cudaErrorInvalidValue;
     }
   }
+#undef WGMMA
+#undef SCALAR
   return (int)cudaErrorInvalidValue;
 }

@@ -8,18 +8,24 @@
 //   - cp.async.bulk.tensor (TMA) loads of 4-d boxes into shared memory,
 //     and the 1-d bulk copy of a contiguous range (no tensor map);
 //   - wgmma.mma_async m64nNk16, f32 += bf16 * bf16, with A from shared
-//     memory (wgmma_ss) or from registers (wgmma_rs), and wgmma.fence /
+//     memory (wgmma_ss, N 64) or from registers (wgmma_rs, N 16, 32, 64,
+//     96, 128 and 256: N / 2 accumulators a thread), and wgmma.fence /
 //     commit_group / wait_group; one warp's mma.sync m16n8k16 (mma_bf16);
 //   - the shared-memory matrix descriptor of a tile loaded by TMA;
 //   - host-side tensor maps (cuTensorMapEncodeTiled, reached through
 //     cudaGetDriverEntryPoint so the library needs no -lcuda).
 //
-// Tile layout. Every bf16 tile is [rows][D] as TMA writes it with a
-// swizzle of SW = min(2 * D, 128) bytes: D 16 takes the 32-byte swizzle,
-// D 64 the 128-byte one, and D 128 (256 bytes a row, more than a box may
-// span under 128-byte swizzle) is loaded as two boxes of 64 columns, box
-// c holding columns [64c, 64c + 64) as its own [rows][64] block. In the
-// descriptor's terms (units of 16 bytes, CUTLASS's canonical layouts):
+// Tile layout. Every bf16 tile is [rows][D] as TMA writes it, in boxes of
+// BC = SW / 2 columns with a swizzle of SW bytes: the widest of 128, 64 or
+// 32 bytes that divides a row's 2 * D bytes (swizzle_bytes). D 16 takes
+// the 32-byte swizzle in one box; D 32 the 64-byte one in one box; D 64
+// the 128-byte one in one box; D 96 (192 bytes a row, which 128 does not
+// divide) the 64-byte one in three boxes of 32 columns; D 128 and 256 the
+// 128-byte one in two and four boxes of 64. Box c holds columns
+// [BC c, BC c + BC) as its own [rows][BC] block, and a tile is always a
+// whole number of boxes (a static_assert in tma_load_tile, a check in
+// make_map), so no head dim loads part of its row. In the descriptor's
+// terms (units of 16 bytes, CUTLASS's canonical layouts):
 //   K-major (the tile's columns are the product's depth): 8-row groups
 //     SBO = 8 * SW apart; a k16 step moves 32 bytes inside a box row, and
 //     to the next box every SW / 32 steps;
@@ -114,14 +120,22 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       : "memory");
 }
 
+// The swizzle of a row of d bf16 values: the widest of 128, 64 or 32
+// bytes that divides its 2 * d bytes (d a multiple of 16)
+__host__ __device__ constexpr int swizzle_bytes(int d) {
+  return (2 * d) % 128 == 0 ? 128 : (2 * d) % 64 == 0 ? 64 : 32;
+}
+
 // The bf16 [B, S, H, D] view a tensor map describes (see make_map): load
-// rows [s0, s0 + rows) of head h, batch b as D / (SW / 2) boxes, box c at
-// dst + c * rows * SW bytes.
+// rows [s0, s0 + rows) of head h, batch b as D / BC boxes of BC = SW / 2
+// columns, box c at dst + c * rows * SW bytes.
 template <int D, int rows>
 __device__ __forceinline__ void tma_load_tile(void* dst, const CUtensorMap* map,
                                               uint64_t* bar, int s0, int h,
                                               int b) {
-  constexpr int BC = D < 64 ? D : 64;  // columns per box
+  constexpr int BC = swizzle_bytes(D) / 2;  // columns per box
+  static_assert(D % 16 == 0 && D % BC == 0,
+                "a tile must be a whole number of swizzle boxes");
 #pragma unroll
   for (int c = 0; c < D / BC; ++c)
     tma_load_4d(static_cast<char*>(dst) + c * rows * BC * 2, map, bar, c * BC,
@@ -149,7 +163,7 @@ __device__ __forceinline__ void fence_regs(float* r) {
 
 template <int D>
 struct Swizzle {
-  static constexpr int bytes = 2 * D < 128 ? 2 * D : 128;  // SW
+  static constexpr int bytes = swizzle_bytes(D);  // SW
   // descriptor layout code: 1 = 128B, 2 = 64B, 3 = 32B
   static constexpr uint64_t code = bytes == 128 ? 1 : bytes == 64 ? 2 : 3;
 };
@@ -172,12 +186,15 @@ __device__ __forceinline__ uint64_t desc_kmajor(const void* tile, int kk) {
 }
 
 // Descriptor of k16 step `kk` of a [rows][D] tile whose rows are the
-// product's depth and whose D columns are its N.
+// product's depth and whose columns [col0, col0 + N) are its N (col0 a
+// multiple of the box's SW / 2 columns).
 template <int D, int rows>
-__device__ __forceinline__ uint64_t desc_mnmajor(const void* tile, int kk) {
+__device__ __forceinline__ uint64_t desc_mnmajor(const void* tile, int kk,
+                                                 int col0 = 0) {
   constexpr int SW = Swizzle<D>::bytes;
-  return make_desc(smem_addr(tile) + kk * 16 * SW, rows * SW, 8 * SW,
-                   Swizzle<D>::code);
+  return make_desc(smem_addr(tile) + (col0 / (SW / 2)) * rows * SW +
+                       kk * 16 * SW,
+                   rows * SW, 8 * SW, Swizzle<D>::code);
 }
 
 // D(64 x N) (+)= A(64 x 16) * B(16 x N), A and B K-major in shared memory.
@@ -226,6 +243,23 @@ __device__ __forceinline__ void wgmma_rs<16>(float* d, const uint32_t* a,
 }
 
 template <>
+__device__ __forceinline__ void wgmma_rs<32>(float* d, const uint32_t* a,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15}"
+      ", {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d));
+}
+
+template <>
 __device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a,
                                              uint64_t db, int scale_d) {
   asm volatile(
@@ -243,6 +277,32 @@ __device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<96>(float* d, const uint32_t* a,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47}"
+      ", {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
         "r"(scale_d));
 }
@@ -274,6 +334,56 @@ __device__ __forceinline__ void wgmma_rs<128>(float* d, const uint32_t* a,
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<256>(float* d, const uint32_t* a,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "
+      "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, "
+      "%90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "
+      "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "
+      "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}"
+      ", {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
         "r"(scale_d));
 }
@@ -322,8 +432,8 @@ __device__ __forceinline__ unsigned char* align_smem(unsigned char* raw) {
 
 // A tensor map of a bf16 [B, S, H, D] tensor with element strides
 // (sb, ss, sh) and a contiguous last dim, as dims (D, H, S, B) with boxes
-// of (min(D, 64), 1, rows, 1) and the tile swizzle; rows past S read as
-// zeros. Returns 0 on success, else a CUDA error code.
+// of (swizzle_bytes(D) / 2, 1, rows, 1) and that swizzle; rows past S
+// read as zeros. Returns 0 on success, else a CUDA error code.
 inline int make_map(CUtensorMap* map, const void* base, int B, int S, int H,
                     int D, long long sb, long long ss, long long sh,
                     int rows) {
@@ -349,11 +459,12 @@ inline int make_map(CUtensorMap* map, const void* base, int B, int S, int H,
       return (int)cudaErrorSymbolNotFound;
     encode = reinterpret_cast<EncodeFn>(fn);
   }
-  const int bc = D < 64 ? D : 64;
+  if (D % 16 != 0) return (int)cudaErrorInvalidValue;  // whole boxes only
+  const int sw = swizzle_bytes(D), bc = sw / 2;
   const CUtensorMapSwizzle swizzle =
-      2 * bc == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                    : 2 * bc == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                   : CU_TENSOR_MAP_SWIZZLE_32B;
+      sw == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                : sw == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                           : CU_TENSOR_MAP_SWIZZLE_32B;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S,
                               (cuuint64_t)B};
   // a dim of extent 1 is never stepped along: give it a stride TMA takes

@@ -21,7 +21,8 @@
 //     past a sequence's end exit at once, and a second small kernel
 //     merges the live splits' partial (m, l, acc) by their log-sum-exp,
 //     reading the lengths to skip the dead ones;
-//   - bf16 (paged_decode_mma, head dims 16, 32, 64 and 128), one warp per
+//   - bf16 (paged_decode_mma, head dims 16, 32, 64, 96, 128 and 256: a
+//     k16 step of S and an m16 tile of O^T per 16 dims), one warp per
 //     block: a page of one kv head is contiguous (page * 2D elements) and
 //     its live rows go to a slot of a ring of ring_slots_for(...) >= 3 page
 //     slots by the 1-d bulk copy (hopper.cuh's bulk_load, no tensor map;
@@ -85,7 +86,10 @@ inline int split_pages_for(int page) {
 
 // page slots of the bf16 kernel's ring: kRingBytes' worth, at least
 // kMinSlots (a 16-row step spans at most two pages of 8 rows or more, and
-// the next page is in flight), at most the split's pages
+// the next page is in flight), at most the split's pages. At D 256 a row
+// is 1,040 bytes with its pad, so pages of 8, 16 and 32 rows all take
+// kMinSlots: 25,984, 50,944 and 100,864 bytes of ring, far inside the
+// 232,448 that launch_mma checks
 inline int ring_slots_for(int page, int d) {
   const int page_bytes = page * (2 * d * (int)sizeof(bf16) + kRowPad);
   return min(split_pages_for(page), max(kMinSlots, kRingBytes / page_bytes));
@@ -473,6 +477,20 @@ int launch_mma(const void* q, const void* pool, const void* bt,
   return (int)cudaGetLastError();
 }
 
+int launch_bf16(int d, const void* q, const void* pool, const void* bt,
+                const void* lens, void* part_acc, void* part_ml, int B,
+                int hq, int hkv, int page, int mp, int n_split, float scale,
+                cudaStream_t stream) {
+#define MMA(D)                                                             \
+  launch_mma<D>(q, pool, bt, lens, part_acc, part_ml, B, hq, hkv, page, mp, \
+                n_split, scale, stream)
+  switch (d) {
+    HEAD_DIM_CASES(MMA)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef MMA
+}
+
 int launch_f32(const void* q, const void* pool, const void* bt,
                const void* lens, void* part_acc, void* part_ml, int B,
                int hq, int hkv, int d, int page, int mp, int n_split,
@@ -504,12 +522,17 @@ extern "C" int paged_decode_splits(int page, int mp) {
   return (mp + sp - 1) / sp;
 }
 
-// Whether paged_decode takes this type and head dim: bf16 takes D 16, 32,
-// 64 and 128 (the tensor-core kernel's instances), float32 any D whose
-// pool row is a multiple of 16 bytes (the wrapper checks the row).
+// Whether paged_decode takes this type and head dim: bf16 takes
+// HEAD_DIM_CASES (common.cuh: the tensor-core kernel's instances), float32
+// any D whose pool row is a multiple of 16 bytes (the wrapper checks the
+// row).
 extern "C" int paged_decode_supports(int dtype, int d) {
-  if (dtype == DTYPE_BF16)
-    return d == 16 || d == 32 || d == 64 || d == 128;
+#define YES(D) 1
+  if (dtype == DTYPE_BF16) switch (d) {
+      HEAD_DIM_CASES(YES)
+      default: return 0;
+    }
+#undef YES
   return dtype == DTYPE_F32;
 }
 
@@ -521,22 +544,12 @@ extern "C" int paged_decode(int dtype, const void* q, const void* pool,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n_split = paged_decode_splits(page, mp);
   if (!paged_decode_supports(dtype, d)) return (int)cudaErrorInvalidValue;
-  int err;
-  if (dtype == DTYPE_F32)
-    err = launch_f32(q, pool, bt, lens, part_acc, part_ml, B, hq, hkv, d,
-                     page, mp, n_split, scale, s);
-  else if (d == 16)
-    err = launch_mma<16>(q, pool, bt, lens, part_acc, part_ml, B, hq, hkv,
-                         page, mp, n_split, scale, s);
-  else if (d == 32)
-    err = launch_mma<32>(q, pool, bt, lens, part_acc, part_ml, B, hq, hkv,
-                         page, mp, n_split, scale, s);
-  else if (d == 64)
-    err = launch_mma<64>(q, pool, bt, lens, part_acc, part_ml, B, hq, hkv,
-                         page, mp, n_split, scale, s);
-  else
-    err = launch_mma<128>(q, pool, bt, lens, part_acc, part_ml, B, hq, hkv,
-                          page, mp, n_split, scale, s);
+  const int err =
+      dtype == DTYPE_F32
+          ? launch_f32(q, pool, bt, lens, part_acc, part_ml, B, hq, hkv, d,
+                       page, mp, n_split, scale, s)
+          : launch_bf16(d, q, pool, bt, lens, part_acc, part_ml, B, hq, hkv,
+                        page, mp, n_split, scale, s);
   if (err != 0) return err;
   const dim3 grid(B * hq), block(kMergeThreads);
   const int split_rows = split_pages_for(page) * page;

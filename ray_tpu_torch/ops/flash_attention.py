@@ -34,7 +34,10 @@ import torch
 from ._build import check, library
 from .attention import NEG_INF, split_segment_ids
 
-KERNEL_HEAD_DIMS = (16, 64, 128)  # every head dim in CONFIGS
+# the head dims K2, K3 and K4 are built for (csrc/common.cuh's
+# HEAD_DIM_CASES): those of CONFIGS and 32, Phi-3-mini's 96 and
+# Gemma-2's 256
+KERNEL_HEAD_DIMS = (16, 32, 64, 96, 128, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 

@@ -13,8 +13,8 @@ compare directly).
   raises, on a CPU tensor it runs ``paged_attention_decode_plain``.
   ``paged_attention_decode.launches`` counts kernel launches (the split
   pass and its merge pass count as one). In bf16 the kernel takes head
-  dims 16, 32, 64 and 128 (``DECODE_HEAD_DIMS_BF16``), in float32 any
-  head dim whose pool row is a multiple of 16 bytes.
+  dims 16, 32, 64, 96, 128 and 256 (``DECODE_HEAD_DIMS_BF16``, K2-K4's
+  set), in float32 any head dim whose pool row is a multiple of 16 bytes.
 - ``paged_prefill_attention`` splits prefill into causal attention among
   the new tokens and segment-masked attention over the cached prefix
   pages, both through ``flash_attention`` (kernel K2), merged by
@@ -35,19 +35,21 @@ from .attention import NEG_INF
 from .flash_attention import KERNEL_HEAD_DIMS, flash_attention
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# head dims of the bf16 K1 kernel: the library's paged_decode_supports
-# (csrc/paged_decode.cu) answers the same, as a gpu test checks
-DECODE_HEAD_DIMS_BF16 = (16, 32, 64, 128)
+# head dims of the bf16 K1 kernel, K2-K4's (csrc/common.cuh's
+# HEAD_DIM_CASES): the library's paged_decode_supports answers the same,
+# as a gpu test checks
+DECODE_HEAD_DIMS_BF16 = KERNEL_HEAD_DIMS
 
 
 def check_kernel_head_dim(head_dim: int, dtype: torch.dtype, device, *,
                           decode: bool, owner: str) -> None:
     """Raise ValueError, naming the kernel, when a model on a CUDA device
-    has a head dim its kernels lack: K2/K3/K4 take KERNEL_HEAD_DIMS; with
-    ``decode`` (the paged serving path) K1 too, which takes
-    DECODE_HEAD_DIMS_BF16 in bf16 and, in float32, a pool row
-    (2 * head_dim floats) of a multiple of 16 bytes. On any other device
-    the plain versions run and every head dim is taken."""
+    has a head dim its kernels lack: K2/K3/K4 take KERNEL_HEAD_DIMS (16,
+    32, 64, 96, 128 and 256); with ``decode`` (the paged serving path) K1
+    too, which takes DECODE_HEAD_DIMS_BF16 (the same) in bf16 and, in
+    float32, a pool row (2 * head_dim floats) of a multiple of 16 bytes.
+    On any other device the plain versions run and every head dim is
+    taken."""
     if torch.device(device).type != "cuda":
         return
     if head_dim not in KERNEL_HEAD_DIMS:

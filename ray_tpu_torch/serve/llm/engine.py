@@ -15,7 +15,8 @@ Device rules:
   a dispatch reads a device value on the host;
 - ``EngineConfig.device`` defaults to ``"cuda"``; with no card the engine
   raises instead of falling back to the CPU, and a CUDA engine refuses at
-  construction a head dim its kernels lack (K1, K2).
+  construction a head dim its kernels lack (K1 and K2 take 16, 32, 64,
+  96, 128 and 256).
 
 Scheduling, as in the JAX engine:
 - legacy (``prefill_chunk_tokens == 0``): admit and prefill whole prompts

@@ -12,6 +12,7 @@ import os
 import types
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -21,7 +22,9 @@ from benchmarks.sharded_serve import ENGINE_CFG, greedy_collect, \
 from ray_tpu.serve.llm import EngineConfig as JaxEngineConfig
 from ray_tpu.serve.llm import LLMEngine as JaxLLMEngine
 from ray_tpu.serve.llm import SamplingParams as JaxSamplingParams
-from ray_tpu_torch.models.convert import params_from_flax
+from ray_tpu_torch.models.config import get_config
+from ray_tpu_torch.models.convert import (flax_from_params, init_params,
+                                          params_from_flax)
 from ray_tpu_torch.serve.llm import (EngineConfig, LLMEngine, Request,
                                      SamplingParams)
 
@@ -67,6 +70,26 @@ def test_greedy_tokens_identical_to_jax_engine():
     params = params_from_flax(jax.tree.map(np.asarray, jax_engine.params),
                               jax_engine.model_cfg)
     engine = LLMEngine(EngineConfig(**CPU_CFG), params=params)
+    got = _collect(engine, {f"g{i}": p
+                            for i, p in enumerate(parity_prompts())})
+    assert got == want
+
+
+def test_greedy_tokens_identical_to_jax_engine_at_head_dim_96():
+    """The same oracle at Phi-3-mini's head dim, 96 (tiny's 4 q heads then
+    make a q width of 384 beside a hidden size of 64), float32, on the
+    port's seeded parameters given to both engines (the JAX engine skips
+    its Flax init): identical greedy tokens."""
+    overrides = dict(ENGINE_CFG["model_overrides"], head_dim=96)
+    cfg = dict(ENGINE_CFG, model_overrides=overrides)
+    model_cfg = get_config("tiny", **overrides)
+    params = init_params(model_cfg, torch.Generator().manual_seed(0), "cpu",
+                         torch.float32)
+    jax_engine = JaxLLMEngine(JaxEngineConfig(**cfg), params=jax.tree.map(
+        jnp.asarray, flax_from_params(params, model_cfg)))
+    want = greedy_collect(jax_engine, parity_prompts())
+    engine = LLMEngine(EngineConfig(**dict(cfg, device="cpu")),
+                       params=params)
     got = _collect(engine, {f"g{i}": p
                             for i, p in enumerate(parity_prompts())})
     assert got == want

@@ -697,28 +697,29 @@ def test_paged_prefill_attention_unaligned_start(start):
 
 @pytest.mark.parametrize("who", ["engine", "trainer"])
 def test_cuda_model_with_unsupported_head_dim_is_refused(monkeypatch, who):
-    """A CUDA engine or trainer whose head dim K2/K3/K4 lack (32 here) is
+    """A CUDA engine or trainer whose head dim K2/K3/K4 lack (48 here) is
     refused at construction, naming the kernel; the card check is stubbed,
     and the refusal comes before anything touches a device."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    with pytest.raises(ValueError, match=r"K2/K3/K4.*\(16, 64, 128\)"):
+    with pytest.raises(ValueError, match=r"K2/K3/K4.*"
+                       r"\(16, 32, 64, 96, 128, 256\)"):
         if who == "engine":
-            LLMEngine(EngineConfig(model_overrides={"head_dim": 32},
+            LLMEngine(EngineConfig(model_overrides={"head_dim": 48},
                                    device="cuda"))
         else:
             with torch.device("meta"):
-                model = LlamaModel(get_config("tiny", head_dim=32))
+                model = LlamaModel(get_config("tiny", head_dim=48))
             ShardedTrainer(model, device="cuda")
 
 
 def test_head_dim_contracts_cpu_takes_any():
     """The contracts per kernel, and a CPU engine, whose plain versions
     take any head dim, serving one the kernels lack."""
-    for d, dtype in ((16, torch.bfloat16), (64, torch.float32),
-                     (128, torch.bfloat16)):
-        check_kernel_head_dim(d, dtype, "cuda", decode=True, owner="t")
+    for d in (16, 32, 64, 96, 128, 256):
+        for dtype in (torch.bfloat16, torch.float32):
+            check_kernel_head_dim(d, dtype, "cuda", decode=True, owner="t")
     with pytest.raises(ValueError, match="K2/K3/K4"):
-        check_kernel_head_dim(32, torch.bfloat16, "cuda", decode=False,
+        check_kernel_head_dim(48, torch.bfloat16, "cuda", decode=False,
                               owner="t")
     check_kernel_head_dim(24, torch.bfloat16, "cpu", decode=True, owner="t")
     engine = _port(None, model_overrides={"vocab_size": 512,

@@ -152,7 +152,7 @@ def _split_rows(page):
 @pytest.mark.parametrize("hq,hkv", [(8, 8), (16, 4), (16, 2),
                                     (32, 2), (24, 2)])  # rep 1, 4, 8, 16, 12
 @pytest.mark.parametrize("page", [8, 16, 32])
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 96, 128, 256])
 def test_decode_kernel_matches_plain_on_card(dtype, hq, hkv, page, d):
     """K1 over a NaN-filled pool (the last live page of every row holds
     stale NaN rows) at lengths 0, a page edge +-1, a split edge +-1 and
@@ -201,7 +201,7 @@ def _fwd_inputs(rng, case, d, dt):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("d", [16, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 96, 128, 256])
 @pytest.mark.parametrize("case", ["causal_1", "causal_37", "causal_100",
                                   "causal_130", "ctx_segments",
                                   "strided_v"])
@@ -225,7 +225,7 @@ def test_flash_kernel_matches_plain_on_card(dtype, d, case):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [32, 64, 96, 128, 256])
 def test_flash_kernel_at_sq1_over_a_growing_cache_matches_plain_on_card(
         dtype, d):
     """The dense KV-cache decode (``LlamaModel(..., kv_caches=)``): K2 at
@@ -283,7 +283,7 @@ def _bwd_inputs(rng, case, d, dt):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("d", [16, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 96, 128, 256])
 @pytest.mark.parametrize("case", ["causal", "segments", "sq_lt_sk",
                                   "sq1_sk200"])
 def test_flash_bwd_kernels_match_plain_on_card(dtype, d, case):
@@ -362,7 +362,7 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="zero-length"):
         t_flash.flash_attention(buf[:2048].view(2, 8, 2, 64), empty, empty,
                                 causal=False)
-    # K1 in bf16 takes head dims 16, 32, 64 and 128
+    # K1 in bf16 takes head dims 16, 32, 64, 96, 128 and 256
     pool = torch.zeros(4, 2, 16, 16, device="cuda", dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dim 8"):
         t_paged.paged_attention_decode(

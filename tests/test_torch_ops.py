@@ -123,13 +123,18 @@ def _filled_pool(rng, *, b, hq, hkv, d, page, num_pages, mp, lengths):
 
 
 # ------------------------------------------------------------------ decode
-@pytest.mark.parametrize("hq,hkv,interpret", [(8, 2, True), (4, 4, None)])
-def test_decode_plain_matches_jax(hq, hkv, interpret):
+@pytest.mark.parametrize("hq,hkv,interpret,d", [
+    pytest.param(8, 2, True, 32, id="8-2-True"),
+    pytest.param(4, 4, None, 32, id="4-4-None"),
+    pytest.param(4, 4, True, 96, id="4-4-True-d96"),
+    pytest.param(4, 2, True, 256, id="4-2-True-d256")])
+def test_decode_plain_matches_jax(hq, hkv, interpret, d):
     """GQA and MHA, incl. an inactive (length 0) and a full row; the JAX
-    side is the Pallas decode kernel in interpret mode (GQA) or its jnp
-    reference path (MHA)."""
+    side is the Pallas decode kernel in interpret mode (GQA, and the head
+    dims 96 and 256 that K1 takes beside 32) or its jnp reference path
+    (MHA)."""
     rng = np.random.default_rng(2)
-    b, d, page, mp = 4, 32, 4, 8
+    b, page, mp = 4, 4, 8
     lengths = [1, 13, 0, mp * page]
     pool, bt, lens, q = _filled_pool(rng, b=b, hq=hq, hkv=hkv, d=d,
                                      page=page, num_pages=64, mp=mp,
@@ -174,12 +179,20 @@ def _qkv(rng, sq, sk, hq=4, hkv=2, d=32, b=2):
 
 
 @pytest.mark.parametrize("case", ["causal_sq_lt_sk", "unaligned",
-                                  "segment_tuple", "fully_masked_rows"])
+                                  "segment_tuple", "fully_masked_rows",
+                                  "d96_segment_tuple",
+                                  "d256_causal_sq_lt_sk"])
 def test_flash_forward_with_lse_matches_jax_kernel(case):
     rng = np.random.default_rng(4)
     segs, causal = None, True
     if case == "causal_sq_lt_sk":
         q, k, v = _qkv(rng, 20, 45)
+    elif case.startswith("d"):  # head dims 96 and 256 (the rest are D 32)
+        q, k, v = _qkv(rng, 12, 30, d=int(case[1:].split("_")[0]))
+        if case == "d96_segment_tuple":
+            kv_seg = (np.arange(30)[None] >= np.array([[10], [20]])).astype(
+                np.int32)
+            segs = (kv_seg[:, -12:], kv_seg)
     elif case == "unaligned":
         q, k, v = _qkv(rng, 37, 37)
         causal = False
@@ -214,6 +227,11 @@ def _bwd_case(case):
     segs, causal = None, True
     if case == "gqa_causal":
         q, k, v = _qkv(rng, 40, 40, d=16)
+    elif case.startswith("d"):  # head dims 96 and 256 (packed is D 32)
+        q, k, v = _qkv(rng, 12, 12, d=int(case[1:].split("_")[0]))
+        if case == "d96_packed_segments":
+            seg = np.repeat(np.arange(2, dtype=np.int32), [5, 7])
+            segs = np.stack([seg, np.sort(seg[::-1])])
     elif case == "sq_lt_sk":
         q, k, v = _qkv(rng, 24, 70, d=16)
     elif case == "packed_segments":
@@ -236,7 +254,8 @@ def _split(segs, sq, sk):
 
 
 @pytest.mark.parametrize("case", ["gqa_causal", "sq_lt_sk",
-                                  "packed_segments", "fully_masked_row"])
+                                  "packed_segments", "fully_masked_row",
+                                  "d96_packed_segments", "d256_gqa_causal"])
 def test_flash_backward_plain_matches_jax_pallas_backward(case):
     """``flash_attention_bwd_plain`` against ``jax.vjp`` of the JAX
     ``flash_attention``, whose backward is the Pallas K3/K4 in interpret

@@ -24,7 +24,8 @@ from ray_tpu.models.llama import get_config as jax_config
 from ray_tpu.parallel import train_lib as jax_train
 from ray_tpu.parallel.mesh import MeshConfig, create_mesh
 from ray_tpu_torch.models.config import get_config
-from ray_tpu_torch.models.convert import build_model, params_from_flax
+from ray_tpu_torch.models.convert import (build_model, params_from_flax,
+                                          train_state_from_flax)
 from ray_tpu_torch.models.llama import LlamaModel, check_mesh
 from ray_tpu_torch.parallel import train_lib
 from ray_tpu_torch.parallel.mesh import MeshConfig as PortMeshConfig
@@ -172,6 +173,47 @@ def test_trainer_matches_jax_sharded_trainer_on_tiny():
     np.testing.assert_allclose(
         float(trainer.eval_loss(state, batches[0])),
         float(trainer_j.eval_loss(state_j, batches[0])), rtol=1e-5)
+
+
+def test_trainer_step_at_head_dim_256_matches_jax_trainer():
+    """One ShardedTrainer step at head dim 256 (Gemma's; tiny's 4 q heads
+    then make a q width of 1024 beside a hidden size of 64) from the JAX
+    trainer's init, on one batch: the loss (rtol 1e-5), the grad norm
+    (rtol 1e-4) and every gradient agree with the JAX trainer's. The
+    gradients are read from AdamW's first moment after the step, mu =
+    0.1 g (g clipped), on both sides: rtol 1e-4, atol 1e-7 (float32 sums
+    over the batch's 31 tokens in another order)."""
+    cfg_j = jax_config("tiny", dtype=jnp.float32, loss_chunk=8,
+                       head_dim=256)
+    mesh = create_mesh(MeshConfig(), devices=jax.devices()[:1])
+    opt = dict(lr=1e-3, warmup=0, total_steps=10)
+    trainer_j = jax_train.ShardedTrainer(
+        JaxLlama(cfg_j), mesh, optimizer=jax_train.default_optimizer(**opt))
+    batch = _batch(np.random.default_rng(5), cfg_j)
+    state_j = trainer_j.init(jax.random.PRNGKey(0), batch)
+    cfg = get_config("tiny", **OVERRIDES, head_dim=256)
+    sd = params_from_flax(jax.tree.map(np.asarray, state_j.params), cfg)
+    with torch.device("meta"):
+        model = LlamaModel(cfg)
+    trainer = train_lib.ShardedTrainer(
+        model, optimizer=train_lib.default_optimizer(**opt), device="cpu")
+    state = trainer.init(None, batch, params=sd)
+    assert state.params["layers.0.attn.qkv_proj.weight"].shape[0] == \
+        (4 + 2 * 2) * 256
+    state_j, m_j = trainer_j.step(state_j, batch)
+    state, m = trainer.step(state, batch)
+    np.testing.assert_allclose(float(m["loss"]), float(m_j["loss"]),
+                               rtol=1e-5)
+    np.testing.assert_allclose(float(m["grad_norm"]),
+                               float(m_j["grad_norm"]), rtol=1e-4)
+    want = train_state_from_flax(jax.tree.map(np.asarray, state_j),
+                                 cfg).opt_state["mu"]
+    mus = state.opt_state["mu"]  # in the order of the parameters
+    assert len(mus) == len(state.params) == len(want)
+    for name, mu in zip(state.params, mus):
+        np.testing.assert_allclose(mu.numpy() / 0.1,
+                                   want[name].numpy() / 0.1, rtol=1e-4,
+                                   atol=1e-7, err_msg=name)
 
 
 def test_schedule_matches_optax():
