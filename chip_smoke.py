@@ -14,7 +14,8 @@ every thread's traceback and exit code 1.
    (UBLKCP) and mma.sync (HMMA) instructions; the bf16 K2, K3 and K4
    kernels must have HGMMA and UTMALDG, the bf16 K1 kernel a bulk copy and
    tensor-core instructions, and each has an instance at every head dim of
-   KERNEL_HEAD_DIMS;
+   KERNEL_HEAD_DIMS (at D 256 the two-warpgroup K2 and K4, which must
+   spill nothing);
 3. kernels: each kernel against its plain PyTorch version at Llama-3-8B
    shapes in bf16 (max error against a stated tolerance), with CUDA-event
    times of the kernel, the plain version and one PyTorch library call,
@@ -166,10 +167,11 @@ every thread's traceback and exit code 1.
    on the card. Rows "<kernel>_d<D>" (bf16, float32 under "f32") count
    the launches of these served and trained runs.
 With `--parent DIR` (a directory holding an earlier commit's tree, for
-example unpacked by `git archive` into the ignored `_archive/`), phases 3
-and 6 also build that tree's paged_decode.cu, flash_fwd.cu and
-flash_bwd.cu and time its K1, K2, K3 and K4 on the same inputs, in turns
-with the current ones.
+example unpacked by `git archive` into the ignored `_archive/`), phases
+3, 6 and head_dims also build that tree's paged_decode.cu, flash_fwd.cu
+and flash_bwd.cu and time its K1, K2, K3 and K4 on the same inputs, in
+turns with the current ones; head_dims prints whether K2-K4's outputs
+equal the earlier tree's bit for bit.
 Then one JSON line of per-kernel numbers, and as the last line
 {"ok": true, "device": {...}}.
 """
@@ -554,12 +556,44 @@ def check_sass(_build) -> None:
     old = [fn for fn in counts if any(
         key in fn for key in ("flash_fwd_mma", "bwd_dq_mma", "bwd_dkv_mma"))]
     assert not old, f"an mma.sync design of K2, K3 or K4 remains: {old}"
-    # a bf16 instance of each kernel at every head dim the wrappers take
+    # a bf16 instance of each kernel at every head dim the wrappers take;
+    # at D 256 K2 past 64 q rows and K4 are the two-warpgroup designs
     for key in ("flash_fwd_wgmma", "bwd_dq_wgmma", "bwd_dkv_wgmma",
                 "paged_decode_mma"):
         for d in KERNEL_HEAD_DIMS:
-            assert any(f"{key}ILi{d}E" in fn for fn in counts), \
-                f"no {key}<{d}> in the built libraries"
+            name = (PAIR_ENTRIES.get(key, key) if d == 256 else key)
+            assert any(f"{name}ILi{d}E" in fn for fn in counts), \
+                f"no {name}<{d}> in the built libraries"
+    assert any("flash_fwd_wgmmaILi256E" in fn for fn in counts), \
+        "no one-warpgroup K2 at D 256 (Sq <= 64) in the built libraries"
+
+
+# the two-warpgroup designs at D 256 (bf16): K2 past 64 q rows, and K4
+PAIR_ENTRIES = {"flash_fwd_wgmma": "flash_fwd_wgmma_pair",
+                "bwd_dkv_wgmma": "bwd_dkv_wgmma_pair"}
+
+
+def check_no_spill(reports) -> None:
+    """The -Xptxas -v reports: each entry function's spill stores and
+    loads; the two-warpgroup D-256 entries must spill nothing."""
+    spills, fn = {}, None
+    for rep in reports.values():
+        for line in rep.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                fn = m.group(1)
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            if m and fn is not None:
+                spills[fn] = (int(m.group(1)), int(m.group(2)))
+                fn = None
+    for name in PAIR_ENTRIES.values():
+        fns = [f for f in spills if f"{name}ILi256E" in f]
+        assert fns, f"no ptxas report of {name}<256>"
+        for f in fns:
+            log(f"  {name}<256>: {spills[f][0]} bytes spill stores, "
+                f"{spills[f][1]} bytes spill loads")
+            assert spills[f] == (0, 0), f"{f} spills"
 
 
 def profile_decode_kernels(torch, fn, calls: int = 20) -> dict:
@@ -3486,29 +3520,53 @@ def hd_flash_rows(torch, flush, d, hq, hkv, dt):
     qb, kb, vec = q.numel() * size, k.numel() * size, lse.numel() * 4
     peak = BF16_FLOPS if bf16 else F32_FLOPS
     plain = dict(iters=3, warmup=1, flush=flush)
+    # the kernels and, with --parent, the earlier tree's in turns
+    scale = kw["scale"]
+    fwd_ms, fwd_parent_ms = timed(
+        lambda: flash_attention(q, k, v, causal=True, return_lse=True),
+        flush, PARENT and (lambda: parent_fwd(torch, q, k, v, True, None,
+                                              None, scale)))
+    dq_ms, dq_parent_ms = timed(
+        lambda: flash_bwd_dq(q, k, v, do, lse, delta, **kw), flush,
+        PARENT and (lambda: parent_dq(torch, q, k, v, do, lse, delta, True,
+                                      None, None, scale)))
+    dkv_ms, dkv_parent_ms = timed(
+        lambda: flash_bwd_dkv(q, k, v, do, lse, delta, **kw), flush,
+        PARENT and (lambda: parent_dkv(torch, q, k, v, do, lse, delta, True,
+                                       None, None, scale)))
+    if PARENT is not None:  # the earlier tree computes the same function
+        new = (*flash_attention(q, k, v, causal=True, return_lse=True),
+               flash_bwd_dq(q, k, v, do, lse, delta, **kw),
+               *flash_bwd_dkv(q, k, v, do, lse, delta, **kw))
+        old = (*parent_fwd(torch, q, k, v, True, None, None, scale),
+               parent_dq(torch, q, k, v, do, lse, delta, True, None, None,
+                         scale),
+               *parent_dkv(torch, q, k, v, do, lse, delta, True, None, None,
+                           scale))
+        same = {n: bool(torch.equal(a, o_))
+                for n, a, o_ in zip(("o", "lse", "dq", "dk", "dv"), new, old)}
+        log(f"  earlier tree's K2/K3/K4 at D {d} {dt} against the current "
+            f"ones, bit for bit: {json.dumps(same)}; max|diff| "
+            + ", ".join(f"{n} {max_err(a, o_):.3e}" for n, a, o_ in
+                        zip(("o", "lse", "dq", "dk", "dv"), new, old)))
     return {
         "flash_fwd": dict(
-            max_abs_err=errs["fwd"], parent_ms=None, peak_flops=peak,
-            ms=time_ms(lambda: flash_attention(q, k, v, causal=True,
-                                               return_lse=True), flush=flush),
+            max_abs_err=errs["fwd"], parent_ms=fwd_parent_ms,
+            peak_flops=peak, ms=fwd_ms,
             plain_ms=time_ms(lambda: flash_attention_plain(q, k, v, **kw),
                              **plain),
             library_ms=sdpa_fwd, bytes=2 * qb + 2 * kb + vec,
             flops=2 * 2 * d * live),
         "flash_bwd_dq": dict(
-            max_abs_err=errs["dq"], parent_ms=None, peak_flops=peak,
-            ms=time_ms(lambda: flash_bwd_dq(q, k, v, do, lse, delta, **kw),
-                       flush=flush),
+            max_abs_err=errs["dq"], parent_ms=dq_parent_ms, peak_flops=peak,
+            ms=dq_ms,
             plain_ms=time_ms(lambda: flash_bwd_dq_plain(
                 q, k, v, do, lse, delta, **kw), **plain),
             library_ms=sdpa_bwd, bytes=3 * qb + 2 * kb + 2 * vec,
             flops=3 * 2 * d * live),
-        # K4's bound counts its four products; at D 256 the bf16 kernel
-        # runs six (S and dP in each of its two column halves)
         "flash_bwd_dkv": dict(
-            max_abs_err=errs["dkv"], parent_ms=None, peak_flops=peak,
-            ms=time_ms(lambda: flash_bwd_dkv(q, k, v, do, lse, delta, **kw),
-                       flush=flush),
+            max_abs_err=errs["dkv"], parent_ms=dkv_parent_ms,
+            peak_flops=peak, ms=dkv_ms,
             plain_ms=time_ms(lambda: flash_bwd_dkv_plain(
                 q, k, v, do, lse, delta, **kw), **plain),
             library_ms=sdpa_bwd, bytes=2 * qb + 4 * kb + 2 * vec,
@@ -3534,8 +3592,8 @@ def check_head_dim_kernels(torch, flush):
         for kname, row in per_type[torch.bfloat16].items():
             f32 = per_type[torch.float32][kname]
             row["f32"] = {k: f32[k] for k in (
-                "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
-                "bound_by", "tflops", "bound_share")}
+                "max_abs_err", "ms", "parent_ms", "plain_ms", "library_ms",
+                "bound_ms", "bound_by", "tflops", "bound_share")}
             rows[f"{kname}_d{d}"] = row
     return rows
 
@@ -3766,9 +3824,10 @@ def build(parent):
     for kname, rep in reports.items():
         for line in rep.splitlines():
             if "Compiling entry function" in line or "Used" in line \
-                    or "spill" in line:
+                    or "spill" in line or "Performance" in line:
                 log(f"  [{kname}] {line.strip()}")
     check_sass(_build)
+    check_no_spill(reports)
     if parent:
         t0 = time.perf_counter()
         PARENT = build_parent(parent)

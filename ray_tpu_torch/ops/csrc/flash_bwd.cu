@@ -29,19 +29,20 @@
 //     partials [B, Hq, Sk, D] and their group sum never touch HBM.
 // Head dims 16, 32, 64, 96, 128 and 256, each its own instance of both
 // variants; at D 256 the float32 variants take 32-row tiles of their own
-// rows (shared memory) and the bf16 K4 splits dK's and dV's columns over
-// two blocks (registers): see each kernel.
+// rows (shared memory), and the bf16 K4 is a block of two warpgroups, one
+// computing S^T and the other dP^T, each owning half of dK's and dV's
+// columns (registers): see each kernel.
 // Two variants each, chosen by the input type, as in K2: an exact
 // scalar-FMA float32 variant (256 threads, 4x4 patches) and, in bf16, a
 // variant built for Hopper: wgmma with TMA through an mbarrier ring, p
 // and ds rounded to bf16 in registers as the A operand of the next
 // product, and every transposed operand read MN-major through the
-// descriptor, so no tile is copied transposed (see bwd_dkv_wgmma and
-// bwd_dq_wgmma).
-// Not done yet: warp specialisation (a producer warp, two consumer
-// warpgroups, setmaxnreg) and overlapping one tile's exp with the next
-// tile's products; one fused kernel writing dq by atomics
-// (FlashAttention-2's layout) instead of two passes.
+// descriptor, so no tile is copied transposed (see bwd_dkv_wgmma,
+// bwd_dkv_wgmma_pair and bwd_dq_wgmma).
+// Not done yet: K3 at D 256 in two warpgroups; a producer warp with
+// setmaxnreg, and overlapping one tile's exp with the next tile's
+// products; one fused kernel writing dq by atomics (FlashAttention-2's
+// layout) instead of two passes.
 #include "hopper.cuh"
 
 namespace {
@@ -420,23 +421,9 @@ __global__ void __launch_bounds__(kThreads) bwd_dkv_f32(BwdParams p) {
 //     dO and Q MN-major through the transpose bit: no transposed copy.
 // dK and dV stay in float32 registers for the whole GQA group. The grid
 // runs the heaviest blocks first: kv tile 0 of every (kv head, batch
-// row), then tile 1, ...
-// At D 256 dK and dV would take 2 x 64 x 256 / 128 = 256 float32
-// registers a thread, more than the 255 a thread may hold before S and
-// dP. So each (kv tile, kv head, batch row) takes dkv_halves<D>() = 2
-// blocks, each owning NC = D / 2 of dK's and dV's columns: a block loads
-// the whole K, V, Q and dO tiles, recomputes S^T and dP^T over the whole
-// D (the products' depth), and runs dV and dK's products at N = NC into
-// 2 x 64 accumulators a thread, D 128's count. The cost: S^T and dP^T
-// are computed twice, 6 products of 2 x 64 x 64 x 256 FLOPs per (kv
-// tile, q tile) pair instead of 4 (1.5 x the operations of K4's bound),
-// and each tile is read by both blocks (the second read mostly from L2).
+// row), then tile 1, ... At D 256 dK and dV alone would take 256 float32
+// registers a thread: bwd_dkv_wgmma_pair below takes that head dim.
 constexpr int kWgThreads = 128;
-
-template <int D>  // blocks splitting dK's and dV's columns
-__host__ __device__ constexpr int dkv_halves() {
-  return D > 128 ? 2 : 1;
-}
 constexpr int kStages = 2;  // ring slots of (Q, dO, lse, delta, q segments)
 
 template <int D>
@@ -457,14 +444,12 @@ bwd_dkv_wgmma(const __grid_constant__ CUtensorMap kmap,
               const __grid_constant__ CUtensorMap qmap,
               const __grid_constant__ CUtensorMap omap, BwdParams p, int B) {
   using L = DkvSmem<D>;
-  constexpr int halves = dkv_halves<D>();
-  constexpr int NC = D / halves;  // this block's columns of dk and dv
-  constexpr int NO = NC / 2;      // dk (and dv) accumulators per thread
+  static_assert(D <= 128, "D 256 is bwd_dkv_wgmma_pair's");
+  constexpr int NO = D / 2;  // dk (and dv) accumulators per thread
   constexpr int KK = D / 16;
-  const int per_tile = p.hkv * B * halves;
+  const int per_tile = p.hkv * B;
   const int kt = blockIdx.x / per_tile, rest = blockIdx.x % per_tile;
-  const int col0 = rest % halves * NC, hb = rest / halves;
-  const int hk = hb % p.hkv, b = hb / p.hkv;
+  const int hk = rest % p.hkv, b = rest / p.hkv;
   const int rep = p.hq / p.hkv;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, tq = lane & 3;
@@ -586,14 +571,14 @@ bwd_dkv_wgmma(const __grid_constant__ CUtensorMap kmap,
     fence_regs<NO>(dv);
 #pragma unroll
     for (int t = 0; t < kBQ / 16; ++t)
-      wgmma_rs<NC>(dv, a[t], desc_mnmajor<D, kBQ>(ot, t, col0), 1);
+      wgmma_rs<D>(dv, a[t], desc_mnmajor<D, kBQ>(ot, t), 1);
 #pragma unroll
     for (int t = 0; t < kBQ / 16; ++t) wg_frag(a[t], dp, t);
     wgmma_fence();
     fence_regs<NO>(dk);
 #pragma unroll
     for (int t = 0; t < kBQ / 16; ++t)
-      wgmma_rs<NC>(dk, a[t], desc_mnmajor<D, kBQ>(qt, t, col0), 1);
+      wgmma_rs<D>(dk, a[t], desc_mnmajor<D, kBQ>(qt, t), 1);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs<NO>(dv);
@@ -613,6 +598,218 @@ bwd_dkv_wgmma(const __grid_constant__ CUtensorMap kmap,
     if (kpos[rr] >= p.sk) continue;
     const size_t row = (((size_t)b * p.sk + kpos[rr]) * p.hkv + hk) * D;
 #pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int col = j * 8 + tq * 2;
+      *reinterpret_cast<uint32_t*>(dk_out + row + col) =
+          pack_bf16(dk[4 * j + 2 * rr], dk[4 * j + 2 * rr + 1]);
+      *reinterpret_cast<uint32_t*>(dv_out + row + col) =
+          pack_bf16(dv[4 * j + 2 * rr], dv[4 * j + 2 * rr + 1]);
+    }
+  }
+}
+
+// P^T = exp2(s^T scale log2(e) - lse log2(e)) on this thread's 32
+// accumulators of S^T (kv rows kpos[0], kpos[1], q columns 8j + 2tq + e),
+// zeroed for a masked pair without taking its exp. Instantiated with and
+// without the masks and chosen per tile, so that a tile needing none runs
+// its exps back to back (one version predicated on a runtime flag
+// serialised them).
+template <bool kMask>
+__device__ __forceinline__ void probs_t(float* x, const BwdParams& p, int q0,
+                                        const int* kpos, const int* ks,
+                                        const int* qseg_s, const float* lse_s,
+                                        int tq, float scale_log2) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * j + 2 * tq + e, idx = 4 * j + 2 * rr + e;
+        const bool keep =
+            !kMask || live(p, q0 + c, kpos[rr], qseg_s[c], ks[rr]);
+        x[idx] = keep ? exp2f(x[idx] * scale_log2 - lse_s[c]) : 0.f;
+      }
+}
+
+// ---------------------------------------------------------------------
+// K4 for Hopper at D 256, bf16: bwd_dkv_wgmma's loads, items and
+// rounding, with one block of two consumer warpgroups (256 threads) per
+// (64-row kv tile, kv head, batch row), so S^T and dP^T are each computed
+// once and every tile is read once. Per item:
+//   warpgroup 0 runs S^T = K Q^T and warpgroup 1 dP^T = V dO^T, each
+//     over the whole depth D;
+//   warpgroup 0 forms P^T (masked as bwd_dkv_wgmma does) and writes it in
+//     float32 to shared memory in the accumulator's own per-thread order
+//     (thread t of one warpgroup holds the same (row, column) positions as
+//     thread t of the other, so no swizzle is involved): 16 KB;
+//   warpgroup 1 reads it and forms dS^T = P^T (dP^T - delta) scale, and
+//     hands dS^T's bf16 A fragments back the same way: 8 KB;
+//   warpgroup w owns dK's and dV's columns [128w, 128w + 128):
+//     dV[:, cols] += P^T dO[:, cols] and dK[:, cols] += dS^T Q[:, cols]
+//     (wgmma_rs<128>, dO and Q MN-major from column 128w).
+// That is 4 products per (kv tile, q tile) pair, K4's bound's count, split
+// evenly over the two warpgroups (the one-warpgroup design took two
+// blocks, each computing S^T and dP^T again: 6). A thread holds 64 dK and
+// 64 dV accumulators, 32 of S^T or dP^T and the fragments. p and ds are
+// rounded to bf16 where bwd_dkv_wgmma rounds them, and each product is the
+// same wgmma on the same operands, so dK and dV equal that design's bit
+// for bit. Two named barriers order the exchange: 1 "P^T written", 2
+// "dS^T written"; warpgroup 0 runs its dV product while warpgroup 1 forms
+// dS^T.
+template <int D>
+struct DkvPairSmem : DkvSmem<D> {  // DkvSmem's ring, then the exchange
+  static constexpr int pt = DkvSmem<D>::bars + (1 + kStages) * 8;
+  static constexpr int ds = pt + 32 * kWgThreads * 4;  // [32][128] float
+  static constexpr int bytes = ds + 16 * kWgThreads * 4;  // [16][128] u32
+};
+static_assert(DkvPairSmem<256>::bytes + kSmemSlack <= 232448,
+              "K4's two-warpgroup shared memory");
+
+// Warpgroup WG's half of bwd_dkv_wgmma_pair's work. WG is a template
+// parameter, so no branch or descriptor below depends on the warpgroup at
+// run time.
+template <int D, int WG, class Tiles, class Vecs>
+__device__ __forceinline__ void dkv_pair_cols(unsigned char* smem,
+                                              const BwdParams& p, int b,
+                                              int hk, int k0, int qb0,
+                                              int per_head, int n_items,
+                                              Tiles load_tiles,
+                                              Vecs load_vecs) {
+  using L = DkvPairSmem<D>;
+  constexpr int NC = D / 2;   // this warpgroup's columns of dk and dv
+  constexpr int NO = NC / 2;  // dk (and dv) accumulators per thread
+  constexpr int KK = D / 16;
+  constexpr int kPair = 2 * kWgThreads;  // threads of a named barrier
+  constexpr int col0 = WG * NC;
+  const int tid = threadIdx.x, t = tid % kWgThreads;
+  const int warp = t / 32, lane = tid % 32;
+  const int g = lane >> 2, tq = lane & 3;
+  const int offset = p.sk - p.sq;
+  const float scale_log2 = p.scale * kLog2e;
+  // warpgroup 0: S^T = K Q^T; warpgroup 1: dP^T = V dO^T
+  const unsigned char* a_s = smem + (WG == 0 ? L::k : L::v);
+  const unsigned char* q_s = smem + L::q;
+  const unsigned char* do_s = smem + L::dout;
+  const float* vec_s = reinterpret_cast<const float*>(smem + L::vec);
+  float* pt_s = reinterpret_cast<float*>(smem + L::pt);
+  uint32_t* ds_s = reinterpret_cast<uint32_t*>(smem + L::ds);
+  uint64_t* kvbar = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* full = kvbar + 1;
+
+  // this thread's two kv rows: k0 + 16 warp + g and 8 below
+  int kpos[2], ks[2];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    kpos[rr] = k0 + warp * 16 + g + 8 * rr;
+    ks[rr] = p.kseg != nullptr
+                 ? p.kseg[(size_t)b * p.sk + min(kpos[rr], p.sk - 1)] : 0;
+  }
+  float dk[NO], dv[NO], x[32];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) dk[i] = dv[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) x[i] = 0.f;
+  mbar_wait(kvbar, 0);
+
+  for (int i = 0; i < n_items; ++i) {
+    const int st = i % kStages;
+    const int q0 = (qb0 + i % per_head) * kBQ;
+    const unsigned char* qt = q_s + st * L::tile;
+    const unsigned char* ot = do_s + st * L::tile;
+    const float* lse_s = vec_s + st * 3 * kBQ;
+    const float* delta_s = lse_s + kBQ;
+    const int* qseg_s = reinterpret_cast<const int*>(delta_s + kBQ);
+    mbar_wait(&full[st], (i / kStages) & 1);
+
+    // x = S^T (warpgroup 0) or dP^T (warpgroup 1)
+    const unsigned char* bt = WG == 0 ? qt : ot;
+    wgmma_fence();
+    fence_regs<32>(x);
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk)
+      wgmma_ss<64>(x, desc_kmajor<D, kBK>(a_s, kk),
+                   desc_kmajor<D, kBQ>(bt, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<32>(x);
+
+    uint32_t pa[4][4], da[4][4];  // A fragments of P^T and dS^T
+    if (WG == 0) {  // P^T over S^T, to the other warpgroup
+      if (p.kseg != nullptr || q0 + kBQ > p.sq || k0 + kBK > p.sk ||
+          (p.causal && k0 + kBK - 1 > q0 + offset))
+        probs_t<true>(x, p, q0, kpos, ks, qseg_s, lse_s, tq, scale_log2);
+      else
+        probs_t<false>(x, p, q0, kpos, ks, qseg_s, lse_s, tq, scale_log2);
+#pragma unroll
+      for (int idx = 0; idx < 32; ++idx) pt_s[idx * kWgThreads + t] = x[idx];
+      named_arrive(1, kPair);
+#pragma unroll
+      for (int tt = 0; tt < kBQ / 16; ++tt) wg_frag(pa[tt], x, tt);
+    } else {  // dS^T over dP^T and the other warpgroup's P^T, and back
+      named_sync(1, kPair);
+      float pr[32];
+#pragma unroll
+      for (int idx = 0; idx < 32; ++idx) pr[idx] = pt_s[idx * kWgThreads + t];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = 8 * j + 2 * tq + e, idx = 4 * j + 2 * rr + e;
+            x[idx] = pr[idx] * (x[idx] - delta_s[c]) * p.scale;
+          }
+#pragma unroll
+      for (int tt = 0; tt < kBQ / 16; ++tt) {
+        wg_frag(pa[tt], pr, tt);
+        wg_frag(da[tt], x, tt);
+      }
+#pragma unroll
+      for (int j = 0; j < 16; ++j) ds_s[j * kWgThreads + t] = da[j / 4][j % 4];
+      named_arrive(2, kPair);
+    }
+
+    // dV[:, cols] += P^T dO[:, cols]
+    wgmma_fence();
+    fence_regs<NO>(dv);
+#pragma unroll
+    for (int tt = 0; tt < kBQ / 16; ++tt)
+      wgmma_rs<NC>(dv, pa[tt], desc_mnmajor<D, kBQ>(ot, tt, col0), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<NO>(dv);
+
+    if (WG == 0) {  // the other warpgroup's dS^T fragments
+      named_sync(2, kPair);
+#pragma unroll
+      for (int j = 0; j < 16; ++j) da[j / 4][j % 4] = ds_s[j * kWgThreads + t];
+    }
+
+    // dK[:, cols] += dS^T Q[:, cols]
+    wgmma_fence();
+    fence_regs<NO>(dk);
+#pragma unroll
+    for (int tt = 0; tt < kBQ / 16; ++tt)
+      wgmma_rs<NC>(dk, da[tt], desc_mnmajor<D, kBQ>(qt, tt, col0), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<NO>(dk);
+
+    named_sync(3, kPair);  // both warpgroups are done with slot st
+    if (WG == 0 && i + kStages < n_items) {
+      if (t == 0) load_tiles(i + kStages, st);
+      if (t < kBQ) load_vecs(i + kStages, st);
+    }
+  }
+
+  bf16* dk_out = static_cast<bf16*>(p.dk);
+  bf16* dv_out = static_cast<bf16*>(p.dv);
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    if (kpos[rr] >= p.sk) continue;
+    const size_t row = (((size_t)b * p.sk + kpos[rr]) * p.hkv + hk) * D;
+#pragma unroll
     for (int j = 0; j < NC / 8; ++j) {
       const int col = col0 + j * 8 + tq * 2;
       *reinterpret_cast<uint32_t*>(dk_out + row + col) =
@@ -621,6 +818,74 @@ bwd_dkv_wgmma(const __grid_constant__ CUtensorMap kmap,
           pack_bf16(dv[4 * j + 2 * rr], dv[4 * j + 2 * rr + 1]);
     }
   }
+}
+
+template <int D>
+__global__ void
+bwd_dkv_wgmma_pair(const __grid_constant__ CUtensorMap kmap,
+                   const __grid_constant__ CUtensorMap vmap,
+                   const __grid_constant__ CUtensorMap qmap,
+                   const __grid_constant__ CUtensorMap omap, BwdParams p,
+                   int B) {
+  using L = DkvPairSmem<D>;
+  const int per_tile = p.hkv * B;
+  const int kt = blockIdx.x / per_tile, rest = blockIdx.x % per_tile;
+  const int hk = rest % p.hkv, b = rest / p.hkv;
+  const int rep = p.hq / p.hkv;
+  const int tid = threadIdx.x;
+  const int k0 = kt * kBK;
+  const int qb0 = first_q_tile(p, k0);
+  const int per_head = (p.sq + kBQ - 1) / kBQ - qb0;
+  const int n_items = rep * per_head;
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_smem(smem_raw);
+  unsigned char* q_s = smem + L::q;
+  unsigned char* do_s = smem + L::dout;
+  float* vec_s = reinterpret_cast<float*>(smem + L::vec);
+  uint64_t* kvbar = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* full = kvbar + 1;
+
+  // item i: q head hk * rep + i / per_head, q tile qb0 + i % per_head
+  auto load_tiles = [&](int i, int slot) {  // thread 0
+    const int h = hk * rep + i / per_head;
+    const int q0 = (qb0 + i % per_head) * kBQ;
+    mbar_expect_tx(&full[slot], 2 * L::tile);
+    tma_load_tile<D, kBQ>(q_s + slot * L::tile, &qmap, &full[slot], q0, h,
+                          b);
+    tma_load_tile<D, kBQ>(do_s + slot * L::tile, &omap, &full[slot], q0, h,
+                          b);
+  };
+  auto load_vecs = [&](int i, int slot) {  // threads 0..kBQ-1
+    const int h = hk * rep + i / per_head;
+    const int qpos = (qb0 + i % per_head) * kBQ + tid;
+    const bool in = qpos < p.sq;
+    float* v = vec_s + slot * 3 * kBQ;
+    v[tid] = in ? p.lse[row_index(p, b, qpos, h)] * kLog2e : 0.f;
+    v[kBQ + tid] = in ? p.delta[row_index(p, b, qpos, h)] : 0.f;
+    reinterpret_cast<int*>(v)[2 * kBQ + tid] =
+        in && p.qseg != nullptr ? p.qseg[(size_t)b * p.sq + qpos] : 0;
+  };
+
+  if (tid == 0) {
+    mbar_init(kvbar, 1);
+    for (int s = 0; s < kStages; ++s) mbar_init(&full[s], 1);
+    mbar_fence_init();
+    mbar_expect_tx(kvbar, 2 * L::tile);
+    tma_load_tile<D, kBK>(smem + L::k, &kmap, kvbar, k0, hk, b);
+    tma_load_tile<D, kBK>(smem + L::v, &vmap, kvbar, k0, hk, b);
+    for (int s = 0; s < kStages && s < n_items; ++s) load_tiles(s, s);
+  }
+  if (tid < kBQ)
+    for (int s = 0; s < kStages && s < n_items; ++s) load_vecs(s, s);
+  __syncthreads();  // barriers initialised, first vectors staged
+
+  if (tid < kWgThreads)
+    dkv_pair_cols<D, 0>(smem, p, b, hk, k0, qb0, per_head, n_items,
+                        load_tiles, load_vecs);
+  else
+    dkv_pair_cols<D, 1>(smem, p, b, hk, k0, qb0, per_head, n_items,
+                        load_tiles, load_vecs);
 }
 
 // ---------------------------------------------------------------------
@@ -834,12 +1099,20 @@ int launch_dkv_wgmma(const BwdParams& p, int B, cudaStream_t stream) {
     err = make_map(&om, p.dout, B, p.sq, p.hq, D, p.o_sb, p.o_ss, p.o_sh,
                    kBQ);
   if (err != 0) return err;
-  const int smem = DkvSmem<D>::bytes + kSmemSlack;
-  cudaFuncSetAttribute(bwd_dkv_wgmma<D>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  const int blocks = (p.sk + kBK - 1) / kBK * p.hkv * B * dkv_halves<D>();
-  bwd_dkv_wgmma<D><<<blocks, kWgThreads, smem, stream>>>(km, vm, qm, om, p,
-                                                          B);
+  const int blocks = (p.sk + kBK - 1) / kBK * p.hkv * B;
+  if constexpr (D == 256) {
+    const int smem = DkvPairSmem<D>::bytes + kSmemSlack;
+    cudaFuncSetAttribute(bwd_dkv_wgmma_pair<D>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    bwd_dkv_wgmma_pair<D><<<blocks, 2 * kWgThreads, smem, stream>>>(
+        km, vm, qm, om, p, B);
+  } else {
+    const int smem = DkvSmem<D>::bytes + kSmemSlack;
+    cudaFuncSetAttribute(bwd_dkv_wgmma<D>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    bwd_dkv_wgmma<D><<<blocks, kWgThreads, smem, stream>>>(km, vm, qm, om, p,
+                                                            B);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -4,7 +4,8 @@
 //   - mbarrier init / arrive.expect_tx / try_wait.parity, with a clock
 //     guard that traps a wait which never completes (a wrong parity or
 //     byte count), so a deadlock ends the launch with an error instead of
-//     hanging the card;
+//     hanging the card; named barriers (bar.sync / bar.arrive) that order
+//     two warpgroups of one block (a wait on one has no such guard);
 //   - cp.async.bulk.tensor (TMA) loads of 4-d boxes into shared memory,
 //     and the 1-d bulk copy of a contiguous range (no tensor map);
 //   - wgmma.mma_async m64nNk16, f32 += bf16 * bf16, with A from shared
@@ -91,6 +92,17 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   while (!mbar_try_wait(addr, parity)) {
     if (clock64() - start > kMbarTimeoutCycles) __trap();
   }
+}
+
+// Named barriers 1..15 (0 is __syncthreads'), for ordering two warpgroups
+// between themselves: `count` threads (a multiple of 32) take part; a
+// sync waits until they all arrived, an arrive does not wait. Both order
+// the caller's earlier shared-memory accesses before the barrier.
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 // ------------------------------------------------------------------- TMA

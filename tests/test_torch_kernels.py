@@ -138,6 +138,33 @@ def test_chip_smoke_watchdog_ends_a_hung_phase():
     assert "phase hang (deadline 1 s)" in proc.stdout
 
 
+@pytest.mark.parametrize("spills,ok", [((0, 0), True), ((440, 808), False),
+                                       (None, False)])
+def test_chip_smoke_spill_check_reads_ptxas_reports(spills, ok):
+    """chip_smoke.py's build phase holds the two-warpgroup D-256 entries
+    to no spill, from the -Xptxas -v report; a report that lacks one of
+    them fails too. No card needed."""
+    import chip_smoke
+
+    def entry(name, stores, loads):
+        return (f"ptxas info    : Compiling entry function '_ZN4_GLOBAL__N_1"
+                f"{len(name)}{name}ILi256EEEv14CUtensorMap_st' for "
+                f"'sm_90a'\nptxas info    : Function properties for x\n"
+                f"    0 bytes stack frame, {stores} bytes spill stores, "
+                f"{loads} bytes spill loads\nptxas info    : Used 231 "
+                f"registers, used 3 barriers\n")
+
+    reports = {"flash_bwd": entry("bwd_dkv_wgmma_pair", 0, 0)
+               + entry("bwd_dkv_wgmma", 8, 16)}  # others may spill
+    if spills is not None:
+        reports["flash_fwd"] = entry("flash_fwd_wgmma_pair", *spills)
+    if ok:
+        chip_smoke.check_no_spill(reports)
+    else:
+        with pytest.raises(AssertionError):
+            chip_smoke.check_no_spill(reports)
+
+
 def _split_rows(page):
     """Rows of one K1 split: the smallest block table with two splits
     is one page wider than a split."""
@@ -315,6 +342,76 @@ def test_flash_bwd_kernels_match_plain_on_card(dtype, d, case):
         _close(got, want, **tol)
     if case == "segments":  # fully masked rows: lse = -1e30, dq = 0
         assert (lse[0, 120:] == -1e30).all() and (dq[0, 120:] == 0).all()
+
+
+def _d256_inputs(rng, s, rep, case):
+    """bf16 q, k, v, do on the card at D 256 (2 kv heads, 2 * rep q heads,
+    B 2; k and v strided views of one fused tensor, as in training) and
+    the segment ids of a tile-edge case. "segments": packed rows where the
+    last q row of row 0 sees no kv row and, in row 1, kv rows ``unseen``
+    (a whole 64-row kv tile where s > 64) are seen by no q row."""
+    hkv, d = 2, 256
+    sq, sk = (s, s + 67) if case == "sq_lt_sk" else (s, s)
+    segs, unseen = None, None
+    if case == "segments":
+        kv_seg = np.zeros((2, sk), np.int32)
+        kv_seg[0, sk // 2:] = 1
+        unseen = slice(64, min(128, sk)) if sk > 64 else slice(sk - 8, sk)
+        kv_seg[1, unseen] = 9
+        q_seg = kv_seg.copy()
+        q_seg[0, -1] = 5
+        q_seg[1, unseen] = 0
+        segs = (torch.from_numpy(q_seg).cuda(), torch.from_numpy(kv_seg).cuda())
+    q = rng.standard_normal((2, sq, hkv * rep, d)).astype(np.float32)
+    kv = rng.standard_normal((2, sk, 2 * hkv, d)).astype(np.float32)
+    do = rng.standard_normal((2, sq, hkv * rep, d)).astype(np.float32)
+    q, kv, do = (torch.from_numpy(x).to("cuda", torch.bfloat16)
+                 for x in (q, kv, do))
+    return q, kv[:, :, :hkv], kv[:, :, hkv:], do, segs, unseen
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["causal", "sq_lt_sk", "segments"])
+@pytest.mark.parametrize("rep", [1, 2, 4])
+@pytest.mark.parametrize("s", [63, 64, 65, 127, 128, 129, 255, 257])
+def test_flash_kernels_at_d256_tile_edges_match_plain_on_card(case, rep, s):
+    """The bf16 D-256 designs (K2 over 128-row q tiles in two warpgroups,
+    K4 with S^T and dP^T exchanged between two warpgroups) and K3 at
+    lengths around the 64-row and 128-row tiles, GQA rep 1, 2 and 4, v a
+    strided view: causal, causal with Sq < Sk, and packed segments with a
+    fully masked q row and kv rows no q row sees; each output against its
+    plain version on the same inputs (lse from K2)."""
+    _need_card()
+    rng = np.random.default_rng(14)
+    q, k, v, do, segs, unseen = _d256_inputs(rng, s, rep, case)
+    kw = dict(causal=True, q_seg=None if segs is None else segs[0],
+              kv_seg=None if segs is None else segs[1], scale=256 ** -0.5)
+    before = (t_flash.flash_attention.launches,
+              t_flash.flash_attention.dq_launches,
+              t_flash.flash_attention.dkv_launches)
+    o, lse = t_flash.flash_attention(q, k, v, causal=True, segment_ids=segs,
+                                     return_lse=True)
+    o_p, lse_p = t_flash.flash_attention_plain(q, k, v, **kw)
+    delta = t_flash.attention_delta(o, do)
+    dq = t_flash.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = t_flash.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    want_dq = t_flash.flash_bwd_dq_plain(q, k, v, do, lse, delta, **kw)
+    want_dk, want_dv = t_flash.flash_bwd_dkv_plain(q, k, v, do, lse, delta,
+                                                   **kw)
+    torch.cuda.synchronize()
+    assert (t_flash.flash_attention.launches,
+            t_flash.flash_attention.dq_launches,
+            t_flash.flash_attention.dkv_launches) == tuple(
+                n + 1 for n in before)
+    _close(o, o_p, **BF16)
+    _close(lse, lse_p, rtol=0, atol=1e-3)
+    for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
+        assert torch.isfinite(got).all()
+        _close(got, want, **BF16)
+    if case == "segments":
+        assert (o[0, -1] == 0).all() and (lse[0, -1] == -1e30).all()
+        assert (dq[0, -1] == 0).all()
+        assert (dk[1, unseen] == 0).all() and (dv[1, unseen] == 0).all()
 
 
 @pytest.mark.gpu
