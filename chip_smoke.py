@@ -80,17 +80,22 @@ every thread's traceback and exit code 1.
 5b. dense_cache: at llama3-8b width with 2 layers in float32, the dense
    KV-cache path (LlamaModel(..., kv_caches=)) prefills 512 tokens into
    an empty cache and decodes 16 one at a time: every position's logits
-   within 1e-3 of the full forward's, K2 launched at Sq = 1 once a layer
-   and step; then K2 at that call's shape, in float32 and in bf16,
-   against its plain version, timed beside SDPA (row flash_fwd_decode,
-   the bf16 variant under its "bf16" key);
+   within 1e-3 of the full forward's, K2's split-KV design launched at
+   Sq = 1 once a layer and step (flash_attention.decode_launches); then
+   K2 at that call's shape, in float32 and in bf16, against its plain
+   version, timed beside SDPA (row flash_fwd_decode, the bf16 variant
+   under its "bf16" key); then the split-KV and 64-row designs at Sq 1 to
+   64 in both types, each held to the plain version and timed in turns
+   (the measurement behind DECODE_MAX_SQ);
 6. training kernels: K2 (forward), K3 (backward dq) and K4 (backward
    dk/dv) against their plain versions at llama-1b's training shapes
    (bf16, B 4, S 2048, Hq 32, Hkv 8, D 64, causal), plus a packed-segment
    case and an sq < sk case, with CUDA-event times of each kernel, its
    plain version and SDPA (forward, and backward for K3/K4); and at
    moe_trainer's shapes (Mixtral: B 2, S 2048, Hq 32, Hkv 8, D 128),
-   causal and with packed segments;
+   causal and with packed segments; then the float32 variants at both
+   shapes likewise, timed beside their float32 bound and SDPA (under
+   "f32" and "f32_d128" in the training rows);
 7. trainer: ShardedTrainer on llama-1b at full width and depth (float32
    params, bf16 compute, remat "nothing", fused loss) takes 6 steps on one
    batch of 4 x 2048 seeded tokens; the loss must fall and K2/K3/K4 must
@@ -168,7 +173,7 @@ every thread's traceback and exit code 1.
    the launches of these served and trained runs.
 With `--parent DIR` (a directory holding an earlier commit's tree, for
 example unpacked by `git archive` into the ignored `_archive/`), phases
-3, 6 and head_dims also build that tree's paged_decode.cu, flash_fwd.cu
+3, 5b, 6 and head_dims also build that tree's paged_decode.cu, flash_fwd.cu
 and flash_bwd.cu and time its K1, K2, K3 and K4 on the same inputs, in
 turns with the current ones; head_dims prints whether K2-K4's outputs
 equal the earlier tree's bit for bit.
@@ -280,10 +285,13 @@ ATOL_ENTRY_BF16 = 0.25
 # build 42.2, kernels 17.4, engine 58.3; tp_engine as engine, with an NCCL
 # start; pp_engine 28.3 with its two processes, dense_cache 0.3,
 # checkpoint 72.4 with 13.5 GB written and read; rllib 15.3, entry 10.8;
-# head_dims 55.6), and at least 30 s
-DEADLINES_S = {"device": 30, "build": 120, "kernels": 60, "engine": 240,
+# head_dims 55.6), and at least 30 s. Since the split-KV K2 and the
+# float32 rows: build 42.1 to 48.6 s, then 21.5 to 24.6 for the earlier
+# tree's kernels (86.6 to 97.8 in all); dense_cache 1.2, train_kernels
+# 6.4, head_dims 36.3
+DEADLINES_S = {"device": 30, "build": 300, "kernels": 60, "engine": 240,
                "tp_engine": 240, "engine_v2": 150, "moe": 350, "moe_reference": 200,
-               "reference": 150, "train_kernels": 30, "trainer": 45,
+               "reference": 150, "train_kernels": 120, "trainer": 45,
                "moe_trainer": 30, "mesh_trainer": 60, "sp_attention": 60,
                "pp_trainer": 90, "train_reference": 45, "pp_engine": 150,
                "dense_cache": 30, "checkpoint": 360, "rllib": 90,
@@ -974,6 +982,23 @@ def check_training_kernels(torch, flush):
     log(f"  SDPA (is_causal, enable_gqa): forward {sdpa_fwd_ms:.4f} ms, "
         f"backward alone (dq, dk, dv in one call) {sdpa_bwd_ms:.4f} ms")
     add_bounds(results)
+    # the float32 variants (the exact reference path) at the same shapes:
+    # llama-1b's (D 64, B 4) under "f32", Mixtral's (D 128, B 2) under
+    # "f32_d128", each with its bound at float32's peak, SDPA and, with
+    # --parent, the earlier tree's kernels
+    for key, d_, b_ in (("f32", d, b), ("f32_d128", 128, 2)):
+        rows = hd_flash_rows(torch, flush, d_, hq, hkv, torch.float32, b=b_)
+        log(f"training kernels in float32 (B {b_}, S {s}, {hq}/{hkv} heads, "
+            f"D {d_}, causal):")
+        add_bounds(rows)
+        for kname, base in (("flash_fwd", "flash_fwd_train"),
+                            ("flash_bwd_dq", "flash_bwd_dq"),
+                            ("flash_bwd_dkv", "flash_bwd_dkv")):
+            results[base][key] = {k: rows[kname][k] for k in (
+                "max_abs_err", "ms", "parent_ms", "plain_ms", "library_ms",
+                "bound_ms", "bound_by", "tflops", "bound_share")}
+        del rows
+        torch.cuda.empty_cache()
     return results
 
 
@@ -2683,9 +2708,11 @@ def run_dense_cache(torch, flush, smi):
     the dense KV-cache path (``LlamaModel(..., kv_caches=)``): prefill 512
     tokens into an empty cache, then decode 16 one at a time; every
     position's logits within ATOL_LOGITS_F32 of the full forward's, and
-    K2 launched at Sq = 1 once a layer and step. Then K2 at that call's
-    shape (Sq 1, Sk 528), in float32 and in bf16, against its plain
-    version, timed, with SDPA."""
+    K2's split-KV design launched at Sq = 1 once a layer and step. Then K2
+    at that call's shape (Sq 1, Sk 528), in float32 and in bf16, against
+    its plain version, timed beside SDPA and, with --parent, the earlier
+    tree's kernel; and the split-KV design against the 64-row one from Sq
+    1 to 64 (decode_sweep)."""
     from ray_tpu_torch.models.config import get_config
     from ray_tpu_torch.models.convert import build_model, init_params
     from ray_tpu_torch.ops.flash_attention import (flash_attention,
@@ -2709,6 +2736,7 @@ def run_dense_cache(torch, flush, smi):
                            kv_caches=empty)
         errs = [max_err(got, full[:, :n_prefill])]
         before = flash_attention.launches
+        before_split = flash_attention.decode_launches
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for t in range(n_prefill, n):
@@ -2719,17 +2747,18 @@ def run_dense_cache(torch, flush, smi):
         torch.cuda.synchronize()
         step_ms = (time.perf_counter() - t0) / n_decode * 1e3
         launches = flash_attention.launches - before
+        split = flash_attention.decode_launches - before_split
     assert tuple(cache[0].shape) == (cfg.num_layers, 1, n, hkv, hd)
     log(f"dense cache (llama3-8b width, 2 layers, f32): prefill "
         f"{n_prefill} then {n_decode} one-token steps; max|logits - full "
         f"forward| prefill {errs[0]:.3e}, decode max {max(errs[1:]):.3e} "
         f"(atol {ATOL_LOGITS_F32}); K2 launches in the decode steps "
-        f"{launches} (Sq = 1, {cfg.num_layers} a step); {step_ms:.2f} ms a "
-        f"decode step on {smi}")
+        f"{launches}, {split} of them split-KV (Sq = 1, {cfg.num_layers} a "
+        f"step); {step_ms:.2f} ms a decode step on {smi}")
     assert all(math.isfinite(e) for e in errs)
     assert max(errs) <= ATOL_LOGITS_F32, "dense-cache logits disagree"
-    assert launches == cfg.num_layers * n_decode, \
-        f"K2 launched {launches} times at Sq = 1"
+    assert launches == split == cfg.num_layers * n_decode, \
+        f"K2 launched {launches} times at Sq = 1, {split} split-KV"
 
     # K2 at the last decode step's shape, held to its plain version
     hq, scale = cfg.num_heads, hd ** -0.5
@@ -2748,16 +2777,18 @@ def run_dense_cache(torch, flush, smi):
     k_t = k.repeat_interleave(hq // hkv, dim=2).transpose(1, 2).contiguous()
     v_t = v.repeat_interleave(hq // hkv, dim=2).transpose(1, 2).contiguous()
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    ms, parent_ms = timed(
+        lambda: flash_attention(q, k, v, causal=True, return_lse=True),
+        flush, PARENT and (lambda: parent_fwd(torch, q, k, v, True, None,
+                                              None, scale)))
     row = dict(
-        max_abs_err=err, parent_ms=None,
-        ms=time_ms(lambda: flash_attention(q, k, v, causal=True,
-                                           return_lse=True), flush=flush),
+        max_abs_err=err, parent_ms=parent_ms, ms=ms,
         plain_ms=time_ms(lambda: flash_attention_plain(
             q, k, v, causal=True, q_seg=None, kv_seg=None, scale=scale),
             flush=flush),
         library_ms=time_ms(lambda: sdpa(q_t, k_t, v_t), flush=flush),
         bytes=(2 * q.numel() + k.numel() + v.numel()) * 4 + lse.numel() * 4,
-        flops=4 * hq * n * hd, peak_flops=F32_FLOPS, launches=launches)
+        flops=4 * hq * n * hd, peak_flops=F32_FLOPS, launches=split)
     add_bounds({"flash_fwd_decode": row})
 
     # the bf16 variant at the same shape (a bf16 model's dense cache runs
@@ -2774,10 +2805,12 @@ def run_dense_cache(torch, flush, smi):
     assert close_bf16(ob, ob_p) and max_err(lseb, lseb_p) <= ATOL_LSE, \
         "K2 at Sq = 1 in bf16 disagrees"
     qb_t, kb_t, vb_t = (t.to(torch.bfloat16) for t in (q_t, k_t, v_t))
+    ms_b, parent_ms_b = timed(
+        lambda: flash_attention(qb, kb, vb, causal=True, return_lse=True),
+        flush, PARENT and (lambda: parent_fwd(torch, qb, kb, vb, True, None,
+                                              None, scale)))
     row_b = dict(
-        max_abs_err=err_b, parent_ms=None,
-        ms=time_ms(lambda: flash_attention(qb, kb, vb, causal=True,
-                                           return_lse=True), flush=flush),
+        max_abs_err=err_b, parent_ms=parent_ms_b, ms=ms_b,
         plain_ms=time_ms(lambda: flash_attention_plain(
             qb, kb, vb, causal=True, q_seg=None, kv_seg=None, scale=scale),
             flush=flush),
@@ -2786,13 +2819,57 @@ def run_dense_cache(torch, flush, smi):
         + lseb.numel() * 4, flops=4 * hq * n * hd, peak_flops=BF16_FLOPS)
     add_bounds({"flash_fwd_decode bf16": row_b})
     row["bf16"] = {k: row_b[k] for k in (
-        "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
-        "bound_by")}
+        "max_abs_err", "ms", "parent_ms", "plain_ms", "library_ms",
+        "bound_ms", "bound_by")}
     del model, full, cache
+    sweep = decode_sweep(torch, flush, gen, n, hq, hkv, hd)
     return {"flash_fwd_decode": row}, {
         "logits_max_abs_err_prefill": errs[0],
         "logits_max_abs_err_decode": max(errs[1:]),
-        "decode_step_ms": step_ms, "k2_launches_at_sq1": launches}
+        "decode_step_ms": step_ms, "k2_launches_at_sq1": launches,
+        "k2_split_kv_launches": split, "split_vs_tiles": sweep}
+
+
+def decode_sweep(torch, flush, gen, sk, hq, hkv, d):
+    """K2's two designs at Sq 1 to 64 over sk keys (B 1, causal), in
+    float32 and bf16: the split-KV kernel and the 64-row one, each held to
+    the plain version and timed in turns (64-row, split, split, 64-row),
+    L2 flushed. The wrapper's DECODE_MAX_SQ is the largest Sq at which
+    the split design was the faster here."""
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    out = {}
+    for dt, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        for sq in (1, 2, 4, 8, 16, 32, 64):
+            q = torch.randn((1, sq, hq, d), generator=gen, device="cuda")
+            k = torch.randn((1, sk, hkv, d), generator=gen, device="cuda")
+            v = torch.randn((1, sk, hkv, d), generator=gen, device="cuda")
+            q, k, v = (t.to(dt) for t in (q, k, v))
+            kw = dict(causal=True, q_seg=None, kv_seg=None, scale=d ** -0.5)
+            o_p, lse_p = fa.flash_attention_plain(q, k, v, **kw)
+            designs = {"split": sq, "tiles": 0}  # the wrapper's max_sq
+            errs = {}
+            for design, max_sq in designs.items():
+                o, lse = fa._launch(q, k, v, max_sq=max_sq, **kw)
+                torch.cuda.synchronize()
+                errs[design] = max(max_err(o, o_p), max_err(lse, lse_p))
+                ok = (close_bf16(o, o_p) if dt == torch.bfloat16 else
+                      max_err(o, o_p) <= ATOL_HD_F32)
+                assert ok and max_err(lse, lse_p) <= ATOL_LSE, \
+                    f"K2 {design} at Sq {sq} ({name}) disagrees"
+            t = [time_ms(lambda m=designs[s]: fa._launch(q, k, v, max_sq=m,
+                                                         **kw), flush=flush)
+                 for s in ("tiles", "split", "split", "tiles")]
+            split_ms, tiles_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+            log(f"  K2 at Sq {sq}, Sk {sk} ({name}): split-KV {split_ms:.4f} "
+                f"ms, 64-row tiles {tiles_ms:.4f} ms (max|kernel-plain| "
+                f"{errs['split']:.2e}, {errs['tiles']:.2e}); the wrapper "
+                f"takes the "
+                + ("split" if sq <= fa.DECODE_MAX_SQ[dt] else "64-row")
+                + " design")
+            out[f"{name}_sq{sq}"] = {"split_ms": split_ms,
+                                     "tiles_ms": tiles_ms}
+    return out
 
 
 def _train_and_resume(torch, make, batch, path, steps: int = 2):
@@ -3473,21 +3550,22 @@ def hd_decode_row(torch, flush, d, hq, hkv, dt):
         peak_flops=BF16_FLOPS if dt == torch.bfloat16 else F32_FLOPS)
 
 
-def hd_flash_rows(torch, flush, d, hq, hkv, dt):
-    """K2, K3 and K4 at head dim d against their plain versions (B 2, S
+def hd_flash_rows(torch, flush, d, hq, hkv, dt, b=2):
+    """K2, K3 and K4 at head dim d against their plain versions (B b, S
     2048: causal, packed segments, and 512 queries over 2048 keys;
     check_flash_case), timed on the causal case beside SDPA where it takes
-    the shape: their rows."""
+    the shape and, with --parent, the earlier tree's kernels: their
+    rows."""
     from ray_tpu_torch.ops.flash_attention import (
         flash_attention, flash_attention_plain, flash_bwd_dkv,
         flash_bwd_dkv_plain, flash_bwd_dq, flash_bwd_dq_plain)
 
     gen = torch.Generator(device="cuda").manual_seed(100 + d)
-    b, s = 2, 2048
+    s = 2048
     bf16 = dt == torch.bfloat16
     seg = torch.tensor([0] * 512 + [1] * 1024 + [2] * 512,
                        dtype=torch.int32, device="cuda")
-    segs = torch.stack([seg, seg.flip(0)])
+    segs = torch.stack([seg, seg.flip(0)] * (b // 2))
     errs = {}
     for name, sq, sg in (("packed segments", s, (segs, segs)),
                          ("sq < sk", 512, None), ("causal", s, None)):
@@ -4072,8 +4150,8 @@ def main() -> int:
          "bound_by": r["bound_by"], "library_ms": r["library_ms"],
          "tflops": r["tflops"], "bound_share": r["bound_share"],
          "parent_ms": r["parent_ms"],
-         **{k: r[k] for k in ("decode_us", "merge_us", "bf16", "f32")
-            if k in r}}
+         **{k: r[k] for k in ("decode_us", "merge_us", "bf16", "f32",
+                              "f32_d128") if k in r}}
         for kname, r in kernels.items()],
         "engine": {"ttft_ms": eng["ttft_ms"],
                    "decode_tok_s": eng["decode_tok_s"],

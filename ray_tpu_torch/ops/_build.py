@@ -46,6 +46,8 @@ SIGNATURES = {
     "flash_fwd": {
         "flash_fwd": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                       _I, _S, _I, _F, _P],
+        "flash_fwd_decode": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                             _I, _I, _I, _I, _I, _S, _I, _F, _I, _I, _P],
     },
     "flash_bwd": {
         "flash_bwd_dq": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,

@@ -60,3 +60,42 @@ __device__ __forceinline__ float group_max(float x) {
     x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
   return x;
 }
+
+// cp.async: BYTES (16 or 4) from global to shared memory without a trip
+// through registers, of which the first src_bytes are read and the rest
+// zero-filled (src_bytes 0: a row past the end becomes zeros and its
+// source is not read). Completes per commit group: cp_async_wait<N>()
+// waits until at most N of this thread's groups are pending; a
+// __syncthreads after it makes every thread's copies visible.
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         int src_bytes) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                 "l"(src), "r"(src_bytes)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d),
+                 "l"(src), "n"(BYTES), "r"(src_bytes)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Whether rows of elem_bytes elements at base, base + stride, ... can be
+// copied in 16-byte pieces: a 16-byte aligned base and strides that keep
+// every row so
+inline bool rows_16b(const void* base, int elem_bytes, long long s0,
+                     long long s1, long long s2) {
+  const long long v = 16 / elem_bytes;
+  return reinterpret_cast<uintptr_t>(base) % 16 == 0 && s0 % v == 0 &&
+         s1 % v == 0 && s2 % v == 0;
+}

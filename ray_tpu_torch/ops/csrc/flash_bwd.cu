@@ -33,16 +33,20 @@
 // computing S^T and the other dP^T, each owning half of dK's and dV's
 // columns (registers): see each kernel.
 // Two variants each, chosen by the input type, as in K2: an exact
-// scalar-FMA float32 variant (256 threads, 4x4 patches) and, in bf16, a
-// variant built for Hopper: wgmma with TMA through an mbarrier ring, p
-// and ds rounded to bf16 in registers as the A operand of the next
-// product, and every transposed operand read MN-major through the
-// descriptor, so no tile is copied transposed (see bwd_dkv_wgmma,
-// bwd_dkv_wgmma_pair and bwd_dq_wgmma).
+// scalar-FMA float32 variant (256 threads; K3's on register tiles read
+// as 16-byte shared loads with its K/V tiles copied in flight by
+// cp.async, K4's on 4x4 patches read a float at a time: see
+// bwd_dq_f32) and, in bf16, a variant built for Hopper: wgmma with TMA
+// through an mbarrier ring, p and ds rounded to bf16 in registers as the
+// A operand of the next product, and every transposed operand read
+// MN-major through the descriptor, so no tile is copied transposed (see
+// bwd_dkv_wgmma, bwd_dkv_wgmma_pair and bwd_dq_wgmma).
 // Not done yet: K3 at D 256 in two warpgroups; a producer warp with
 // setmaxnreg, and overlapping one tile's exp with the next tile's
 // products; one fused kernel writing dq by atomics (FlashAttention-2's
-// layout) instead of two passes.
+// layout) instead of two passes; K4's float32 variant on K3's register
+// tiles and copies in flight; two K3 float32 blocks an SM at D 96 and
+// 128 (their tiles take 145,920 and 186,880 bytes of shared memory).
 #include "hopper.cuh"
 
 namespace {
@@ -69,6 +73,7 @@ struct BwdParams {
   long long v_sb, v_ss, v_sh, o_sb, o_ss, o_sh;  // o_*: strides of do
   int causal;
   float scale;
+  int vec16;  // q, k, v, do rows copy in 16-byte pieces (float32 K3)
 };
 
 // number of kv tiles a q tile of `rows` rows starting at q0 reads (K2's
@@ -99,26 +104,76 @@ __device__ __forceinline__ size_t row_index(const BwdParams& p, int b,
 }
 
 // ---------------------------------------------------------------------
-// float32 variants: scalar FMAs on float32 tiles (padded rows, no bank
-// conflicts on the column walks). A block's own tile (q rows for K3, kv
-// rows for K4) has f32_rows<D>() rows: 64, or 32 at D 256, where four
-// 64-row float32 tiles and the score tile (279,808 bytes for K3, 297,216
-// for K4) would pass the 232,448 a block may use. The other tile stays 64
-// rows, and each thread owns a (rows / 16) x 4 patch of the score tile.
+// float32 variants: exact scalar FMAs on float32 tiles, a block's threads
+// as a (threads / 16) x 16 grid (ty, tx).
+//
+// K3 (bwd_dq_f32, one block per (q tile, q head, batch row), heaviest q
+// tiles first) is bound by how fast it can feed its FMAs: per live pair
+// it does 3 D FMAs on operands in shared memory. Its design:
+//   - register tiles read as 16-byte shared loads: thread (ty, tx) owns
+//     rows ty + TY i (TY = threads / 16) and kv columns tx + 16 j (j < 4)
+//     of S and dP, and walks the head dim 4 columns at a time, reading a
+//     row's 4 values of q, do, k and v as one float4 each (rows padded by
+//     4 floats: the 8 k rows a quarter-warp reads fall in distinct banks,
+//     its q row is one broadcast): with 4 rows a thread, 16 loads for 128
+//     FMAs. For dQ += dS K it owns rows ty + TY i and head dims
+//     VW tx + 16 VW n + w (float4, float2 or scalar pieces of a k row),
+//     and reads 4 dS columns of a row as one float4: at D 96, 16 loads
+//     for 96 FMAs;
+//   - 256 threads (4 rows each of a 64-row q tile) up to D 128; 128 at D
+//     256 (4 rows each of a 32-row tile), where 256 threads would hold two
+//     rows each: half the FMAs a load, and slower on the card;
+//   - copies in flight: q and do once, K and V by 16-byte cp.async (4-byte
+//     for a view off 16-byte alignment); K in two stages (the next tile
+//     lands during this one's three products), V in one, refilled as soon
+//     as dP is done, during dS and dQ (one stage of K at D 256, where two
+//     do not fit);
+//   - shared memory: 104,960 bytes at D 64 and less below, so two blocks
+//     share an SM there (__launch_bounds__ then holds a thread to 128
+//     registers); 145,920 at D 96, 186,880 at D 128 and 208,640 at D 256
+//     (32-row q tiles), one block;
+//   - masks only on a tile that crosses the causal limit or the sk edge,
+//     or that carries segment ids, whose kv ids are staged with the K tile
+//     (the warp that writes a row of dS also reads it: __syncwarp, no
+//     block barrier, between the two).
+// K4 (bwd_dkv_f32) keeps its first, scalar design: its own tile (kv rows)
+// has f32_rows<D>() rows, 64 or 32 at D 256, and each thread owns a
+// (rows / 16) x 4 patch of the score tile, read one float at a time.
 
 template <int D>
 __host__ __device__ constexpr int f32_rows() {
   return D > 128 ? 32 : 64;
 }
 
-// K3's float32 shared memory: q, do [BQ][D+1]; k, v [kBK][D+1]; ds
+// K3's float32 tiles: offsets in floats into shared memory
 template <int D>
-__host__ __device__ constexpr size_t dq_f32_smem() {
-  constexpr size_t bq = f32_rows<D>();
-  return sizeof(float) * ((2 * bq + 2 * kBK) * (D + 1) + bq * (kBK + 1));
-}
+struct DqF32 {
+  // threads, (NT / 16) x 16: 128 at D 256, where a 32-row q tile gives
+  // 256 threads only two rows each
+  static constexpr int NT = D > 128 ? 128 : kThreads;
+  static constexpr int TY = NT / 16;
+  static constexpr int BQ = f32_rows<D>();     // q rows of a block
+  static constexpr int A = BQ / TY;            // rows of a thread
+  static constexpr int RS = D + 4;             // padded row stride
+  static constexpr int PS = kBK + 4;           // dS row stride
+  static constexpr int KSTAGES = D > 128 ? 1 : 2;
+  static constexpr int DC = D / 16;            // dQ head dims of a thread
+  static constexpr int VW = DC % 4 == 0 ? 4 : DC % 2 == 0 ? 2 : 1;
+  static constexpr int q = 0;                  // [BQ][RS]
+  static constexpr int dout = q + BQ * RS;     // [BQ][RS]
+  static constexpr int k = dout + BQ * RS;     // [KSTAGES][kBK][RS]
+  static constexpr int v = k + KSTAGES * kBK * RS;  // [kBK][RS]
+  static constexpr int ds = v + kBK * RS;      // [BQ][PS]
+  static constexpr int kseg = ds + BQ * PS;    // [KSTAGES][kBK] int
+  static constexpr size_t bytes = 4 * (size_t)(kseg + KSTAGES * kBK);
+  static constexpr int min_blocks = 2 * bytes + 2048 <= 233472 ? 2 : 1;
+};
+static_assert(DqF32<64>::min_blocks == 2 && DqF32<96>::min_blocks == 1,
+              "K3 f32 blocks an SM");
+static_assert(DqF32<256>::bytes <= 232448, "K3 f32 shared memory");
 
-// K4's: k, v [BK][D+1]; q, do [kBQ][D+1]; p, ds [BK][kBQ+1]; 3 vectors
+// K4's float32 shared memory: k, v [BK][D+1]; q, do [kBQ][D+1]; p, ds
+// [BK][kBQ+1]; 3 vectors
 template <int D>
 __host__ __device__ constexpr size_t dkv_f32_smem() {
   constexpr size_t bk = f32_rows<D>();
@@ -126,131 +181,225 @@ __host__ __device__ constexpr size_t dkv_f32_smem() {
                           3 * kBQ);
 }
 
+__device__ __forceinline__ float dot4(float4 a, float4 b, float c) {
+  c = fmaf(a.x, b.x, c);
+  c = fmaf(a.y, b.y, c);
+  c = fmaf(a.z, b.z, c);
+  return fmaf(a.w, b.w, c);
+}
+
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// rows [r0, r0 + rows) of a float32 [*, D] operand with row stride ss
+// into dst (row stride RS) by cp.async, NT threads: rows at or past n are
+// zeros
+template <int D, int RS, int NT>
+__device__ __forceinline__ void stage_rows(float* dst, const float* src,
+                                           long long ss, int r0, int rows,
+                                           int n, bool vec16) {
+  if (vec16) {
+    for (int i = threadIdx.x; i < rows * (D / 4); i += NT) {
+      const int r = i / (D / 4), e = i % (D / 4) * 4, row = r0 + r;
+      cp_async<16>(dst + r * RS + e, src + min(row, n - 1) * ss + e,
+                   row < n ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * D; i += NT) {
+      const int r = i / D, e = i % D, row = r0 + r;
+      cp_async<4>(dst + r * RS + e, src + min(row, n - 1) * ss + e,
+                  row < n ? 4 : 0);
+    }
+  }
+}
+
+// dS of this thread's A x 4 patch of a kv tile (rows ty + TY i) from S
+// and dP; masked only where the tile needs it (a tile template per case:
+// see online_softmax in flash_fwd.cu for what ptxas does with one loop
+// predicated on a flag)
+template <int A, int TY, bool kMask>
+__device__ __forceinline__ void dq_f32_ds(
+    const BwdParams& p, float (*s)[4], float (*dp)[4], const float* lse,
+    const float* delta, const int* qs, const int* ks, float* ds_s, int ps,
+    int q0, int k0, int ty, int tx) {
+#pragma unroll
+  for (int i = 0; i < A; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = tx + 16 * j;
+      const bool keep =
+          !kMask || live(p, q0 + ty + TY * i, k0 + c, qs[i], ks[c]);
+      const float pr = keep ? expf(s[i][j] * p.scale - lse[i]) : 0.f;
+      ds_s[(ty + TY * i) * ps + c] = pr * (dp[i][j] - delta[i]) * p.scale;
+    }
+}
+
 template <int D>
-__global__ void __launch_bounds__(kThreads) bwd_dq_f32(BwdParams p) {
-  constexpr int DS = D + 1, PS = kBK + 1, DC = D / 16;
-  constexpr int BQ = f32_rows<D>(), A = BQ / 16;  // q rows, rows a thread
-  static_assert(dq_f32_smem<D>() <= 232448, "K3 f32 shared memory");
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+__global__ void __launch_bounds__(DqF32<D>::NT, DqF32<D>::min_blocks)
+bwd_dq_f32(BwdParams p, int B) {
+  using L = DqF32<D>;
+  constexpr int BQ = L::BQ, A = L::A, RS = L::RS, PS = L::PS;
+  constexpr int NT = L::NT, TY = L::TY;
+  constexpr int DC = L::DC, VW = L::VW, NV = DC / VW;
+  const int n_qt = (p.sq + BQ - 1) / BQ;
+  // heaviest first: under causal masking the last q tiles see most kv
+  const int qt = n_qt - 1 - (int)(blockIdx.x / (p.hq * B));
+  const int rest = blockIdx.x % (p.hq * B);
+  const int h = rest % p.hq, b = rest / p.hq;
   const int hk = h / (p.hq / p.hkv);
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int q0 = qt * BQ;
+  const bool vec16 = p.vec16 != 0;
 
-  extern __shared__ float smem[];
-  float* q_s = smem;             // [BQ][DS]
-  float* do_s = q_s + BQ * DS;   // [BQ][DS]
-  float* k_s = do_s + BQ * DS;   // [kBK][DS]
-  float* v_s = k_s + kBK * DS;   // [kBK][DS]
-  float* ds_s = v_s + kBK * DS;  // [BQ][PS]
+  extern __shared__ __align__(16) float dq_smem[];
+  float* q_s = dq_smem + L::q;
+  float* do_s = dq_smem + L::dout;
+  float* v_s = dq_smem + L::v;
+  float* ds_s = dq_smem + L::ds;
+  int* kseg_s = reinterpret_cast<int*>(dq_smem + L::kseg);
 
   const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
   const float* dout =
       static_cast<const float*>(p.dout) + b * p.o_sb + h * p.o_sh;
   const float* k = static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh;
   const float* v = static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh;
+  auto load_k = [&](int kb, int st) {  // K tile kb and its kv segment ids
+    stage_rows<D, RS, NT>(dq_smem + L::k + st * kBK * RS, k, p.k_ss,
+                          kb * kBK, kBK, p.sk, vec16);
+    if (p.kseg != nullptr && tid < kBK) {
+      const int kpos = kb * kBK + tid;
+      kseg_s[st * kBK + tid] =
+          kpos < p.sk ? p.kseg[(size_t)b * p.sk + kpos] : 0;
+    }
+  };
 
-  for (int i = tid; i < BQ * D; i += kThreads) {
-    const int r = i / D, e = i - r * D;
-    const int qpos = q0 + r;
-    const bool in = qpos < p.sq;
-    q_s[r * DS + e] = in ? q[qpos * p.q_ss + e] : 0.f;
-    do_s[r * DS + e] = in ? dout[qpos * p.o_ss + e] : 0.f;
+  // commit groups, in order: q and do; K 0 and V 0; K 1 (two stages);
+  // then per tile kb: V kb + 1, and K kb + 2 (two stages) or kb + 1
+  const int n_kb = kv_tiles(p, q0, BQ);
+  stage_rows<D, RS, NT>(q_s, q, p.q_ss, q0, BQ, p.sq, vec16);
+  stage_rows<D, RS, NT>(do_s, dout, p.o_ss, q0, BQ, p.sq, vec16);
+  cp_async_commit();
+  if (n_kb > 0) {
+    load_k(0, 0);
+    stage_rows<D, RS, NT>(v_s, v, p.v_ss, 0, kBK, p.sk, vec16);
   }
+  cp_async_commit();
+  if (L::KSTAGES == 2 && n_kb > 1) load_k(1, 1);
+  cp_async_commit();
 
   float lse[A], delta[A], acc[A][DC];
   int qs[A];
 #pragma unroll
-  for (int a = 0; a < A; ++a) {
-    const int qpos = q0 + ty + 16 * a;
-    const bool in = qpos < p.sq;
-    lse[a] = in ? p.lse[row_index(p, b, qpos, h)] : 0.f;
-    delta[a] = in ? p.delta[row_index(p, b, qpos, h)] : 0.f;
-    qs[a] = p.qseg != nullptr ? p.qseg[(size_t)b * p.sq + min(qpos, p.sq - 1)]
-                              : 0;
+  for (int i = 0; i < A; ++i) {
+    const int qpos = q0 + ty + TY * i;
+    const bool in = qpos < p.sq;  // rows past sq: q = do = 0, so dS = 0
+    lse[i] = in ? p.lse[row_index(p, b, qpos, h)] : 0.f;
+    delta[i] = in ? p.delta[row_index(p, b, qpos, h)] : 0.f;
+    qs[i] = p.qseg != nullptr
+                ? p.qseg[(size_t)b * p.sq + min(qpos, p.sq - 1)] : 0;
 #pragma unroll
-    for (int c = 0; c < DC; ++c) acc[a][c] = 0.f;
+    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
   }
 
-  const int n_kb = kv_tiles(p, q0, BQ);
   for (int kb = 0; kb < n_kb; ++kb) {
-    const int k0 = kb * kBK;
-    __syncthreads();  // the previous iteration is done with k_s and ds_s
-    for (int i = tid; i < kBK * D; i += kThreads) {
-      const int r = i / D, e = i - r * D;
-      const int kpos = k0 + r;
-      const bool in = kpos < p.sk;
-      k_s[r * DS + e] = in ? k[kpos * p.k_ss + e] : 0.f;
-      v_s[r * DS + e] = in ? v[kpos * p.v_ss + e] : 0.f;
-    }
-    __syncthreads();
+    const int st = L::KSTAGES == 2 ? kb & 1 : 0, k0 = kb * kBK;
+    const float* k_s = dq_smem + L::k + st * kBK * RS;
+    if (L::KSTAGES == 2)
+      cp_async_wait<1>();  // all but K kb + 1
+    else
+      cp_async_wait<0>();
+    __syncthreads();  // K, V and the segment ids of tile kb are in
 
-    // S = Q K^T and dP = dO V^T for rows ty + 16a, cols tx + 16c
+    // S = Q K^T and dP = dO V^T: rows ty + 16 i, columns tx + 16 j
     float s[A][4], dp[A][4];
 #pragma unroll
-    for (int a = 0; a < A; ++a)
+    for (int i = 0; i < A; ++i)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) s[a][c] = dp[a][c] = 0.f;
-#pragma unroll 4
-    for (int e = 0; e < D; ++e) {
-      float qa[A], oa[A], kc[4], vc[4];
+      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 2
+    for (int e = 0; e < D; e += 4) {
+      float4 kf[4], vf[4];
 #pragma unroll
-      for (int a = 0; a < A; ++a) {
-        qa[a] = q_s[(ty + 16 * a) * DS + e];
-        oa[a] = do_s[(ty + 16 * a) * DS + e];
+      for (int j = 0; j < 4; ++j) {
+        kf[j] = lds4(k_s + (tx + 16 * j) * RS + e);
+        vf[j] = lds4(v_s + (tx + 16 * j) * RS + e);
       }
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        kc[c] = k_s[(tx + 16 * c) * DS + e];
-        vc[c] = v_s[(tx + 16 * c) * DS + e];
-      }
+      for (int i = 0; i < A; ++i) {
+        const float4 qf = lds4(q_s + (ty + TY * i) * RS + e);
+        const float4 of = lds4(do_s + (ty + TY * i) * RS + e);
 #pragma unroll
-      for (int a = 0; a < A; ++a)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          s[a][c] = fmaf(qa[a], kc[c], s[a][c]);
-          dp[a][c] = fmaf(oa[a], vc[c], dp[a][c]);
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = dot4(qf, kf[j], s[i][j]);
+          dp[i][j] = dot4(of, vf[j], dp[i][j]);
         }
-    }
-
-#pragma unroll
-    for (int a = 0; a < A; ++a) {
-      const int qpos = q0 + ty + 16 * a;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int kpos = k0 + tx + 16 * c;
-        const int ks = p.kseg != nullptr && kpos < p.sk
-                           ? p.kseg[(size_t)b * p.sk + kpos] : 0;
-        const float pr = live(p, qpos, kpos, qs[a], ks)
-                             ? expf(s[a][c] * p.scale - lse[a]) : 0.f;
-        ds_s[(ty + 16 * a) * PS + tx + 16 * c] =
-            pr * (dp[a][c] - delta[a]) * p.scale;
       }
     }
-    __syncthreads();
+    __syncthreads();  // every warp is done with V kb: refill it
+    if (kb + 1 < n_kb)
+      stage_rows<D, RS, NT>(v_s, v, p.v_ss, k0 + kBK, kBK, p.sk, vec16);
+    cp_async_commit();
 
-    // dQ += dS K for rows ty + 16a, cols tx + 16c
-#pragma unroll 4
-    for (int j = 0; j < kBK; ++j) {
-      float da[A];
+    // dS into shared memory; a row's writers and readers are one warp
+    const int* ks = kseg_s + st * kBK;
+    if (p.kseg != nullptr || k0 + kBK > p.sk ||
+        (p.causal && k0 + kBK - 1 > q0 + (p.sk - p.sq)))
+      dq_f32_ds<A, TY, true>(p, s, dp, lse, delta, qs, ks, ds_s, PS, q0, k0,
+                             ty, tx);
+    else
+      dq_f32_ds<A, TY, false>(p, s, dp, lse, delta, qs, ks, ds_s, PS, q0,
+                              k0, ty, tx);
+    __syncwarp();
+
+    // dQ += dS K: rows ty + 16 i, head dims VW tx + 16 VW n + w
+#pragma unroll 2
+    for (int c = 0; c < kBK; c += 4) {
+      float4 d4[A];
 #pragma unroll
-      for (int a = 0; a < A; ++a) da[a] = ds_s[(ty + 16 * a) * PS + j];
+      for (int i = 0; i < A; ++i) d4[i] = lds4(ds_s + (ty + TY * i) * PS + c);
 #pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        const float kv = k_s[j * DS + tx + 16 * c];
+      for (int cc = 0; cc < 4; ++cc) {
+        const float* k_row = k_s + (c + cc) * RS + VW * tx;
 #pragma unroll
-        for (int a = 0; a < A; ++a) acc[a][c] = fmaf(da[a], kv, acc[a][c]);
+        for (int n = 0; n < NV; ++n) {
+          float kv[VW];
+          if constexpr (VW == 4) {
+            const float4 x = lds4(k_row + 16 * VW * n);
+            kv[0] = x.x; kv[1] = x.y; kv[2] = x.z; kv[3] = x.w;
+          } else if constexpr (VW == 2) {
+            const float2 x =
+                *reinterpret_cast<const float2*>(k_row + 16 * VW * n);
+            kv[0] = x.x; kv[1] = x.y;
+          } else {
+            kv[0] = k_row[16 * n];
+          }
+#pragma unroll
+          for (int i = 0; i < A; ++i) {
+            const float dsv = (&d4[i].x)[cc];
+#pragma unroll
+            for (int w = 0; w < VW; ++w)
+              acc[i][n * VW + w] = fmaf(dsv, kv[w], acc[i][n * VW + w]);
+          }
+        }
       }
     }
+    __syncthreads();  // every warp is done with K kb: refill its stage
+    const int next = kb + L::KSTAGES;
+    if (next < n_kb) load_k(next, st);
+    cp_async_commit();
   }
 
   float* dq = static_cast<float*>(p.dq);
 #pragma unroll
-  for (int a = 0; a < A; ++a) {
-    const int qpos = q0 + ty + 16 * a;
+  for (int i = 0; i < A; ++i) {
+    const int qpos = q0 + ty + TY * i;
     if (qpos >= p.sq) continue;
-    float* row = dq + row_index(p, b, qpos, h) * D;
+    float* row = dq + row_index(p, b, qpos, h) * D + VW * tx;
 #pragma unroll
-    for (int c = 0; c < DC; ++c) row[tx + 16 * c] = acc[a][c];
+    for (int n = 0; n < NV; ++n)
+#pragma unroll
+      for (int w = 0; w < VW; ++w) row[16 * VW * n + w] = acc[i][n * VW + w];
   }
 }
 
@@ -1128,9 +1277,13 @@ int launch(Kernel kernel, dim3 grid, int threads, size_t smem,
 template <int D>
 int dq(int dtype, const BwdParams& p, int B, cudaStream_t s) {
   if (dtype == DTYPE_BF16) return launch_dq_wgmma<D>(p, B, s);
-  constexpr int bq = f32_rows<D>();
-  const dim3 grid((p.sq + bq - 1) / bq, p.hq, B);
-  return launch(bwd_dq_f32<D>, grid, kThreads, dq_f32_smem<D>(), p, s);
+  using L = DqF32<D>;
+  cudaFuncSetAttribute(bwd_dq_f32<D>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)L::bytes);
+  const int blocks = (p.sq + L::BQ - 1) / L::BQ * p.hq * B;
+  bwd_dq_f32<D><<<blocks, L::NT, L::bytes, s>>>(p, B);
+  return (int)cudaGetLastError();
 }
 
 template <int D>
@@ -1160,6 +1313,10 @@ BwdParams make_params(const void* q, const void* k, const void* v,
   p.o_sb = st[9]; p.o_ss = st[10]; p.o_sh = st[11];
   p.causal = causal;
   p.scale = scale;
+  p.vec16 = rows_16b(q, 4, st[0], st[1], st[2]) &&
+            rows_16b(k, 4, st[3], st[4], st[5]) &&
+            rows_16b(v, 4, st[6], st[7], st[8]) &&
+            rows_16b(dout, 4, st[9], st[10], st[11]);
   return p;
 }
 

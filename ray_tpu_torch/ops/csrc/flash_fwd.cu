@@ -11,10 +11,17 @@
 // h / (Hq / Hkv). A fully masked row writes o = 0 and lse = -1e30, a
 // finite sentinel the log-sum-exp merge of paged prefill relies on.
 //
-// What bounds it on the H100: operations. Prefill attention does
-// 4*D*Sq*Sk/2 (causal) operations on O((Sq+Sk)*D) bytes, hundreds of
-// operations per byte, so the card's arithmetic is the roofline. Two
-// variants, chosen by the input type:
+// What bounds it on the H100: operations at prefill and training shapes,
+// bytes at decode shapes. Prefill attention does 4*D*Sq*Sk/2 (causal)
+// operations on O((Sq+Sk)*D) bytes, hundreds of operations per byte, so
+// the card's arithmetic is the roofline there. A few q rows over a long
+// kv axis (the dense KV cache's one new token) do 2 rep operations per
+// K/V element read, and there the kernel has to keep bytes in flight on
+// every SM: up to DECODE_MAX_SQ q rows (the wrapper's, from a measurement
+// of both designs) the split-KV design below takes K2 in either type
+// (flash_fwd_decode_kernel, which also merges its splits; see there).
+// Past it, two
+// variants of the 64-row design, chosen by the input type:
 //   - bf16 (serving and training) is built for Hopper: wgmma on operands
 //     in shared memory, filled by TMA through an mbarrier ring, with P
 //     kept in registers between the two products and V read MN-major
@@ -32,7 +39,10 @@
 // one-warpgroup block leaves room for a second block on the SM), a TMA
 // producer warp with setmaxnreg, and overlapping one tile's softmax with
 // the same warpgroup's next S product; a TMA store of o; reading ctx pages
-// through the block table instead of a gathered copy.
+// through the block table instead of a gathered copy; the float32 64-row
+// variant's register tiles (K3's float32 design); in the split-KV design,
+// tensor-core products (mma.sync, as K1's) and the chunk's kv rows spread
+// over the warps where a block has fewer rows than warps.
 #include "hopper.cuh"
 
 namespace {
@@ -644,6 +654,384 @@ flash_fwd_wgmma_pair(const __grid_constant__ CUtensorMap qmap,
                         scale_log2);
 }
 
+// ---------------------------------------------------------------------
+// Decode shapes (a few q rows over a long kv axis: the dense KV cache's
+// one new token): split-KV, K1's flash-decoding design over contiguous,
+// strided K/V. At Sq 1 the 64-row kernels above ran one block per q head
+// (32 blocks for 132 SMs) on a q tile 63 rows of which were padding, each
+// walking every kv tile in turn, and the q heads of a GQA group each read
+// the same K/V rows. The work is bound by bytes: a K/V row of 2 D
+// elements carries 2 rep D multiply-adds, one or two FLOPs a byte against
+// the card's ~20 on its CUDA cores. So:
+//   - one block of 4 warps per (split of the kv axis, kv head and group
+//     of kDecRows rows, batch row); the rows are the group's rep q heads
+//     times the Sq q rows (row g: q row g / rep, q head hk rep + g % rep),
+//     so every K/V row is read once per group; the wrapper sizes the
+//     splits (decode_plan) so the grid covers the SMs;
+//   - a block stages its split kDecChunk rows at a time, K and V by
+//     16-byte cp.async (4-byte for a float32 view off 16-byte alignment)
+//     into two stages, the next chunk in flight during this one's math;
+//     rows past the split's end are zero-filled, never read;
+//   - CUDA-core FMAs in float32 for both types: warp w owns rows w, w + 4,
+//     w + 8, w + 12, one row at a time, and lane c a chunk's kv row c for
+//     S = q k^T (K rows padded by 16 bytes: conflict-free 16-byte reads;
+//     four partial sums a score), the online softmax in base 2 over the
+//     warp's lanes, then lane c owns head dims c + 32 j for O += P V over
+//     the chunk's rows (a zero-filled row has p = 0), p read 4 at a time
+//     from the warp's slot in shared memory (rounded to the kv type first
+//     in bf16, as _fwd_kernel rounds it). Each step is straight-line code
+//     inside a warp-uniform branch, so that one kv row's loads overlap
+//     another's products;
+//   - each split writes its (m, l, acc) in float32; the last split of a
+//     (batch row, kv head, row group) to finish, found by an atomic count
+//     that it leaves at zero again, merges the splits by their
+//     log-sum-exp into o (q's type) and lse. A single split writes o and
+//     lse itself: one launch, where a merge kernel would add a second.
+// At the dense cache's decode the block is bound by the latency of its
+// steps, not by its bytes: one wave of blocks, one chunk each.
+// The masks are the 64-row kernels': columns past the split's live end
+// (sk, or the causal bound of the block's last q row) are masked; the
+// causal bound per row and segment equality only on a chunk that needs
+// them. A row that sees no kv gives o = 0 and lse = -1e30.
+constexpr int kDecThreads = 128;
+constexpr int kDecRows = 16;   // rows of a block (decode_plan's DECODE_ROWS)
+constexpr int kDecChunk = 32;  // kv rows a stage holds (DECODE_CHUNK)
+constexpr int kDecWarpRows = kDecRows / (kDecThreads / 32);
+
+template <typename T, int D>
+struct DecSmem {                                   // byte offsets
+  static constexpr int RS = D + 16 / sizeof(T);    // a K/V row's stride
+  static constexpr int chunk = kDecChunk * RS * sizeof(T);  // a K or V chunk
+  static constexpr int q = 0;                      // [kDecRows][D] float
+  static constexpr int kv = kDecRows * D * 4;      // [2 stages][K, V]
+  static constexpr int kseg = kv + 4 * chunk;      // [2 stages][kDecChunk]
+  static constexpr int p = kseg + 2 * kDecChunk * 4;  // [warps][kDecChunk]
+  static constexpr int bytes = p + kDecThreads * 4;
+};
+static_assert(DecSmem<float, 256>::bytes <= 232448, "K2 decode smem");
+
+// One row's splits merged by their log-sum-exp (base 2) by one warp, lane
+// c holding head dims c + 32 j: the lanes read 32 splits' (m, l) at once
+// and pass each split's weight by a shuffle, so that the loads of the
+// splits' acc rows do not wait on one another. The partials were written
+// by other blocks of this launch: read through L2 (ld.global.cg).
+template <typename T, int D>
+__device__ __forceinline__ void merge_splits(const float* part_acc,
+                                             const float* part_ml, size_t rows,
+                                             size_t row, int n_split,
+                                             int lane, T* o_row, float* lse) {
+  constexpr int DJ = (D + 31) / 32;
+  auto load_ml = [&](int i) {  // split i's (m, l); (-1e30, 0) past the last
+    return i < n_split ? __ldcg(reinterpret_cast<const float2*>(
+                             part_ml + (i * rows + row) * 2))
+                       : make_float2(NEG_INF_F, 0.f);
+  };
+  const float2 ml0 = load_ml(lane);  // the first 32 splits, kept
+  float mx = ml0.x;
+  for (int i = lane + 32; i < n_split; i += 32) mx = fmaxf(mx, load_ml(i).x);
+  mx = group_max<32>(mx);
+  float sum = 0.f, acc[DJ];
+#pragma unroll
+  for (int jj = 0; jj < DJ; ++jj) acc[jj] = 0.f;
+  for (int base = 0; base < n_split; base += 32) {
+    const int n = min(32, n_split - base);
+    // split base + lane's weight (a split that saw no kv has l = 0)
+    const float2 ml = base == 0 ? ml0 : load_ml(base + lane);
+    const float w = exp2f(ml.x - mx);
+    sum = fmaf(ml.y, w, sum);
+#pragma unroll 16
+    for (int j = 0; j < n; ++j) {
+      const float wj = __shfl_sync(0xffffffffu, w, j);
+      const float* pa = part_acc + ((base + j) * rows + row) * D;
+#pragma unroll
+      for (int jj = 0; jj < DJ; ++jj)
+        if (lane + 32 * jj < D)
+          acc[jj] = fmaf(__ldcg(pa + lane + 32 * jj), wj, acc[jj]);
+    }
+  }
+  sum = group_sum<32>(sum);
+  const float inv = sum == 0.f ? 0.f : 1.f / sum;
+#pragma unroll
+  for (int jj = 0; jj < DJ; ++jj)
+    if (lane + 32 * jj < D) o_row[lane + 32 * jj] = from_f32<T>(acc[jj] * inv);
+  if (lane == 0) *lse = row_lse(mx, sum);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kDecThreads)
+flash_fwd_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, T* __restrict__ o,
+                        float* __restrict__ lse, const int* __restrict__ qseg,
+                        const int* __restrict__ kseg, float* part_acc,
+                        float* part_ml, int* counts, int sq, int sk, int hq,
+                        int hkv, long long q_sb, long long q_ss,
+                        long long q_sh, long long k_sb, long long k_ss,
+                        long long k_sh, long long v_sb, long long v_ss,
+                        long long v_sh, long long o_sb, long long o_ss,
+                        long long o_sh, int causal, float scale_log2,
+                        int split_rows, int vec16) {
+  using L = DecSmem<T, D>;
+  constexpr int VE = 16 / sizeof(T);  // elements of a 16-byte piece
+  constexpr int DJ = (D + 31) / 32;   // head dims of a lane in O += P V
+  const int split = blockIdx.x, n_split = gridDim.x, b = blockIdx.z;
+  const int rep = hq / hkv, n_all = rep * sq;
+  const int groups = (n_all + kDecRows - 1) / kDecRows;
+  const int hk = blockIdx.y / groups, r0 = blockIdx.y % groups * kDecRows;
+  const int n_rows = min(kDecRows, n_all - r0);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int offset = sk - sq;
+
+  // this block's kv rows [kb, ke): the split, cut at sk and at the causal
+  // bound of its last q row (no row sees past it)
+  const int kb = split * split_rows;
+  int ke = min(sk, kb + split_rows);
+  const int s_first = r0 / rep, s_last = (r0 + n_rows - 1) / rep;
+  if (causal) ke = min(ke, s_last + offset + 1);
+  const int n_chunks = ke > kb ? (ke - kb + kDecChunk - 1) / kDecChunk : 0;
+
+  extern __shared__ __align__(16) unsigned char dsmem[];
+  float* q_s = reinterpret_cast<float*>(dsmem + L::q);
+  int* kseg_s = reinterpret_cast<int*>(dsmem + L::kseg);
+  float* p_s = reinterpret_cast<float*>(dsmem + L::p);
+  const T* k_base = k + b * k_sb + hk * k_sh;
+  const T* v_base = v + b * v_sb + hk * v_sh;
+
+  // chunk c of the split into stage st, as one commit group
+  auto load_chunk = [&](int c, int st) {
+    const int c0 = kb + c * kDecChunk, n = min(kDecChunk, ke - c0);
+    T* ks = reinterpret_cast<T*>(dsmem + L::kv + 2 * st * L::chunk);
+    T* vs = reinterpret_cast<T*>(dsmem + L::kv + (2 * st + 1) * L::chunk);
+    if (vec16) {
+      for (int i = tid; i < kDecChunk * (D / VE); i += kDecThreads) {
+        const int r = i / (D / VE), e = i % (D / VE) * VE;
+        const long long row = c0 + min(r, n - 1);  // in bounds, read or not
+        const int bytes = r < n ? 16 : 0;
+        cp_async<16>(ks + r * L::RS + e, k_base + row * k_ss + e, bytes);
+        cp_async<16>(vs + r * L::RS + e, v_base + row * v_ss + e, bytes);
+      }
+    } else if constexpr (sizeof(T) == 4) {  // a float32 view off alignment
+      for (int i = tid; i < kDecChunk * D; i += kDecThreads) {
+        const int r = i / D, e = i % D;
+        const long long row = c0 + min(r, n - 1);
+        const int bytes = r < n ? 4 : 0;
+        cp_async<4>(ks + r * L::RS + e, k_base + row * k_ss + e, bytes);
+        cp_async<4>(vs + r * L::RS + e, v_base + row * v_ss + e, bytes);
+      }
+    }
+    if (kseg != nullptr && tid < kDecChunk)
+      kseg_s[st * kDecChunk + tid] =
+          tid < n ? kseg[(size_t)b * sk + c0 + tid] : 0;
+    cp_async_commit();
+  };
+  if (n_chunks > 0) load_chunk(0, 0);
+  if (n_chunks > 1) load_chunk(1, 1);
+
+  // the block's q rows as float32, every load in flight at once (a loop
+  // that stored each value before loading the next waited out one global
+  // load latency per value)
+  constexpr int QPT = kDecRows * D / kDecThreads;
+  float qv[QPT];
+#pragma unroll
+  for (int u = 0; u < QPT; ++u) {
+    const int i = tid + u * kDecThreads, r = i / D, e = i % D, g = r0 + r;
+    qv[u] = r < n_rows ? to_f32(q[b * q_sb + (g / rep) * q_ss +
+                                  (hk * rep + g % rep) * q_sh + e])
+                       : 0.f;
+  }
+#pragma unroll
+  for (int u = 0; u < QPT; ++u) q_s[tid + u * kDecThreads] = qv[u];
+  // this warp's rows w + 4i: q row, segment id, running (m, l, acc)
+  int spos[kDecWarpRows], qs[kDecWarpRows];
+  float m[kDecWarpRows], l[kDecWarpRows], acc[kDecWarpRows][DJ];
+#pragma unroll
+  for (int i = 0; i < kDecWarpRows; ++i) {
+    const int g = r0 + min(warp + 4 * i, n_rows - 1);
+    spos[i] = g / rep;
+    qs[i] = qseg != nullptr ? qseg[(size_t)b * sq + spos[i]] : 0;
+    m[i] = NEG_INF_F;
+    l[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
+  }
+
+  for (int c = 0; c < n_chunks; ++c) {
+    const int st = c & 1, c0 = kb + c * kDecChunk;
+    if (c + 1 < n_chunks)
+      cp_async_wait<1>();
+    else
+      cp_async_wait<0>();
+    __syncthreads();  // chunk c (and q_s) visible to every thread
+    const T* ks =
+        reinterpret_cast<const T*>(dsmem + L::kv + 2 * st * L::chunk);
+    const T* vs =
+        reinterpret_cast<const T*>(dsmem + L::kv + (2 * st + 1) * L::chunk);
+    const bool mask = kseg != nullptr || c0 + kDecChunk > ke ||
+                      (causal && c0 + kDecChunk - 1 > s_first + offset);
+
+    // row by row of the warp's rows: a warp-uniform branch around
+    // straight-line code
+    const T* k_row = ks + lane * L::RS;
+    float* p_w = p_s + warp * kDecChunk;
+#pragma unroll
+    for (int i = 0; i < kDecWarpRows; ++i) {
+      if (warp + 4 * i >= n_rows) break;  // warp-uniform
+      // S: lane = kv row c0 + lane; four partial sums
+      const float* q_row = q_s + (warp + 4 * i) * D;
+      float sc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int e = 0; e < D; e += VE) {
+        float kf[VE];
+        if constexpr (sizeof(T) == 4) {
+          const float4 x = *reinterpret_cast<const float4*>(k_row + e);
+          kf[0] = x.x; kf[1] = x.y; kf[2] = x.z; kf[3] = x.w;
+        } else {
+          const uint4 x = *reinterpret_cast<const uint4*>(k_row + e);
+          const __nv_bfloat162* h2 =
+              reinterpret_cast<const __nv_bfloat162*>(&x);
+#pragma unroll
+          for (int u = 0; u < VE / 2; ++u) {
+            const float2 f = __bfloat1622float2(h2[u]);
+            kf[2 * u] = f.x;
+            kf[2 * u + 1] = f.y;
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < VE; u += 4) {
+          const float4 qf = *reinterpret_cast<const float4*>(q_row + e + u);
+          sc[0] = fmaf(qf.x, kf[u], sc[0]);
+          sc[1] = fmaf(qf.y, kf[u + 1], sc[1]);
+          sc[2] = fmaf(qf.z, kf[u + 2], sc[2]);
+          sc[3] = fmaf(qf.w, kf[u + 3], sc[3]);
+        }
+      }
+
+      // the online softmax over the warp's lanes
+      float x = ((sc[0] + sc[1]) + (sc[2] + sc[3])) * scale_log2;
+      bool keep = true;
+      if (mask) {
+        const int kpos = c0 + lane;
+        keep = kpos < ke;
+        if (causal) keep = keep && kpos <= spos[i] + offset;
+        if (kseg != nullptr)
+          keep = keep && kseg_s[st * kDecChunk + lane] == qs[i];
+        if (!keep) x = NEG_INF_F;
+      }
+      const float m_new = fmaxf(m[i], group_max<32>(x));
+      const float pr = keep ? exp2f(x - m_new) : 0.f;
+      const float alpha = exp2f(m[i] - m_new);
+      l[i] = l[i] * alpha + group_sum<32>(pr);
+      m[i] = m_new;
+      p_w[lane] = to_f32(from_f32<T>(pr));  // rounded to the kv type
+      __syncwarp();
+
+      // O += P V over every row of the chunk (a row past the split's live
+      // end was zero-filled and has p = 0); p read 4 at a time
+#pragma unroll
+      for (int jj = 0; jj < DJ; ++jj) acc[i][jj] *= alpha;
+      // kv rows a straight-line step: fewer at D 256, where a lane holds
+      // 8 head dims of each row (registers)
+      constexpr int JB = D > 128 ? 8 : kDecChunk;
+#pragma unroll 1
+      for (int j0 = 0; j0 < kDecChunk; j0 += JB) {
+#pragma unroll
+        for (int j = j0; j < j0 + JB; j += 4) {
+          const float4 p4 = *reinterpret_cast<const float4*>(p_w + j);
+          const float pj[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const T* v_row = vs + (j + u) * L::RS;
+#pragma unroll
+            for (int jj = 0; jj < DJ; ++jj)
+              if (lane + 32 * jj < D)
+                acc[i][jj] = fmaf(pj[u], to_f32(v_row[lane + 32 * jj]),
+                                  acc[i][jj]);
+          }
+        }
+      }
+      __syncwarp();  // p_w is read before the next row writes it
+    }
+    __syncthreads();  // every warp is done with stage st
+    if (c + 2 < n_chunks) load_chunk(c + 2, st);
+  }
+
+  // one split: o and lse; else this split's (m, l, acc) for the merge
+  const size_t rows_all = (size_t)gridDim.z * sq * hq;
+#pragma unroll
+  for (int i = 0; i < kDecWarpRows; ++i) {
+    if (warp + 4 * i >= n_rows) continue;
+    const int g = r0 + warp + 4 * i, s = g / rep, h = hk * rep + g % rep;
+    const size_t row = ((size_t)b * sq + s) * hq + h;
+    if (n_split == 1) {
+      const float inv = l[i] == 0.f ? 0.f : 1.f / l[i];
+      T* o_row = o + b * o_sb + s * o_ss + h * o_sh;
+#pragma unroll
+      for (int jj = 0; jj < DJ; ++jj)
+        if (lane + 32 * jj < D)
+          o_row[lane + 32 * jj] = from_f32<T>(acc[i][jj] * inv);
+      if (lane == 0) lse[row] = row_lse(m[i], l[i]);
+    } else {
+      const size_t idx = split * rows_all + row;
+#pragma unroll
+      for (int jj = 0; jj < DJ; ++jj)
+        if (lane + 32 * jj < D)
+          part_acc[idx * D + lane + 32 * jj] = acc[i][jj];
+      if (lane == 0) {
+        part_ml[idx * 2] = m[i];
+        part_ml[idx * 2 + 1] = l[i];
+      }
+    }
+  }
+  if (n_split == 1) return;
+
+  // the last split of this (batch row, kv head, row group) merges
+  __shared__ int last;
+  __threadfence();  // this block's partials are visible before its count
+  __syncthreads();
+  int* count = counts + (size_t)b * gridDim.y + blockIdx.y;
+  if (tid == 0) last = atomicAdd(count, 1) == n_split - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+#pragma unroll
+  for (int i = 0; i < kDecWarpRows; ++i) {
+    if (warp + 4 * i >= n_rows) continue;
+    const int g = r0 + warp + 4 * i, s = g / rep, h = hk * rep + g % rep;
+    const size_t row = ((size_t)b * sq + s) * hq + h;
+    merge_splits<T, D>(part_acc, part_ml, rows_all, row, n_split, lane,
+                       o + b * o_sb + s * o_ss + h * o_sh, lse + row);
+  }
+  if (tid == 0) *count = 0;  // for the next launch
+}
+
+template <typename T, int D>
+int launch_decode(const void* q, const void* k, const void* v, void* o,
+                  void* lse, const void* qseg, const void* kseg,
+                  void* part_acc, void* part_ml, void* counts, int B, int sq,
+                  int sk, int hq, int hkv, const long long* st, int causal,
+                  float scale, int split_rows, int n_split,
+                  cudaStream_t stream) {
+  using L = DecSmem<T, D>;
+  const int groups = (hq / hkv * sq + kDecRows - 1) / kDecRows;
+  const bool vec16 = rows_16b(k, sizeof(T), st[3], st[4], st[5]) &&
+                     rows_16b(v, sizeof(T), st[6], st[7], st[8]);
+  if (!vec16 && sizeof(T) != 4) return (int)cudaErrorInvalidValue;
+  if (n_split > 1 && (part_acc == nullptr || part_ml == nullptr ||
+                      counts == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaFuncSetAttribute(flash_fwd_decode_kernel<T, D>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, L::bytes);
+  const dim3 grid(n_split, hkv * groups, B);
+  flash_fwd_decode_kernel<T, D><<<grid, kDecThreads, L::bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
+      static_cast<const int*>(qseg), static_cast<const int*>(kseg),
+      static_cast<float*>(part_acc), static_cast<float*>(part_ml),
+      static_cast<int*>(counts), sq, sk, hq, hkv, st[0], st[1], st[2], st[3],
+      st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], causal,
+      scale * kLog2e, split_rows, (int)vec16);
+  return (int)cudaGetLastError();
+}
+
 template <int D>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o,
                  void* lse, const void* qseg, const void* kseg, int B, int sq,
@@ -734,5 +1122,45 @@ extern "C" int flash_fwd(int dtype, const void* q, const void* k,
   }
 #undef WGMMA
 #undef SCALAR
+  return (int)cudaErrorInvalidValue;
+}
+
+// The split-KV kernel for decode shapes: flash_fwd's arguments, then the
+// float32 partial buffers part_acc [n_split, B, Sq, Hq, D] and part_ml
+// [n_split, B, Sq, Hq, 2] and the int32 counts [B, Hkv x row groups],
+// zero before the launch and left at zero by it (all unused when n_split
+// is 1), and the split of split_rows kv rows (decode_plan in the wrapper).
+extern "C" int flash_fwd_decode(int dtype, const void* q, const void* k,
+                                const void* v, void* o, void* lse,
+                                const void* qseg, const void* kseg,
+                                void* part_acc, void* part_ml, void* counts,
+                                int B, int sq,
+                                int sk, int hq, int hkv, int d,
+                                const long long* strides, int causal,
+                                float scale, int split_rows, int n_split,
+                                void* stream) {
+  if (split_rows <= 0 || n_split <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define DEC(T, D)                                                        \
+  launch_decode<T, D>(q, k, v, o, lse, qseg, kseg, part_acc, part_ml,    \
+                      counts, B, sq, sk, hq, hkv, strides, causal, scale, \
+                      split_rows, n_split, s)
+#define DEC_BF16(D) DEC(bf16, D)
+#define DEC_F32(D) DEC(float, D)
+  if (dtype == DTYPE_BF16) {
+    switch (d) {
+      HEAD_DIM_CASES(DEC_BF16)
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  if (dtype == DTYPE_F32) {
+    switch (d) {
+      HEAD_DIM_CASES(DEC_F32)
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+#undef DEC
+#undef DEC_BF16
+#undef DEC_F32
   return (int)cudaErrorInvalidValue;
 }

@@ -18,15 +18,20 @@ On CUDA tensors the wrappers launch the hand-written kernels
 (``csrc/flash_fwd.cu`` for ``_fwd_kernel``, ``csrc/flash_bwd.cu`` for
 ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``; see the sources for their
 design and bound) or raise; on CPU tensors they run the plain versions.
-Launch counters: ``flash_attention.launches`` (K2),
-``flash_attention.segment_launches`` (K2 with segment ids, the
-cached-prefix part of paged prefill), ``flash_attention.dq_launches`` (K3)
-and ``flash_attention.dkv_launches`` (K4).
+K2 has two designs: at decode shapes (Sq up to ``DECODE_MAX_SQ``) a
+split-KV kernel whose splits ``decode_plan`` sizes, else 64-row q tiles.
+Launch counters: ``flash_attention.launches`` (K2, either design),
+``flash_attention.decode_launches`` (K2's split-KV design: the dense KV
+cache's decode steps), ``flash_attention.segment_launches`` (K2 with
+segment ids, the cached-prefix part of paged prefill),
+``flash_attention.dq_launches`` (K3) and ``flash_attention.dkv_launches``
+(K4).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -39,6 +44,64 @@ from .attention import NEG_INF, split_segment_ids
 # Gemma-2's 256
 KERNEL_HEAD_DIMS = (16, 32, 64, 96, 128, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# K2's split-KV design (csrc/flash_fwd.cu, flash_fwd_decode): a block takes
+# DECODE_ROWS rows (the q heads of one kv head's group times the q rows)
+# and stages its split of the kv axis DECODE_CHUNK rows at a time (the
+# source's kDecRows and kDecChunk)
+DECODE_ROWS = 16
+DECODE_CHUNK = 32
+# the largest Sq that takes it, by type; a larger Sq takes the 64-row
+# kernels. chip_smoke.py's dense_cache phase times both designs at Sq 1 to
+# 64 over 528 keys (32/8 heads, D 128; PERF.md): in float32 the split-KV
+# design was the faster at every Sq up to 64, one whole q tile of the
+# scalar 64-row kernel, which computes all 64 rows whatever Sq is; in bf16
+# only at Sq 1: from Sq 2 the wgmma kernel, whose 64-row tile costs about
+# as much at Sq 2 as at 1, was the faster.
+DECODE_MAX_SQ = {torch.float32: 64, torch.bfloat16: 1}
+
+
+def decode_plan(b: int, sq: int, sk: int, hq: int, hkv: int, sms: int,
+                max_sq: int) -> Optional[Tuple[int, int]]:
+    """(split_rows, n_split) of K2's split-KV kernel at this shape, or
+    None where the 64-row kernels take it (Sq past ``max_sq``, or no kv).
+
+    The kv axis is cut into n_split splits of split_rows rows (whole
+    DECODE_CHUNK-row chunks, at least one), as many as give about two
+    blocks an SM over the grid of (split, kv head and row group, batch
+    row). At the dense KV cache's decode (B 1, Sq 1, Sk 528, 32/8 heads,
+    132 SMs): 17 splits of 32 rows, 136 blocks."""
+    if sq > max_sq or sk == 0:
+        return None
+    blocks = b * hkv * _row_groups(sq, hq, hkv)  # blocks of one split
+    chunks = -(-sk // DECODE_CHUNK)
+    want = max(1, -(-2 * sms // blocks))
+    per = -(-chunks // min(chunks, want))
+    return per * DECODE_CHUNK, -(-chunks // per)
+
+
+def _row_groups(sq: int, hq: int, hkv: int) -> int:
+    """Blocks of the split-KV kernel a kv head and split: its rep * Sq
+    rows in groups of DECODE_ROWS."""
+    return -(-(hq // hkv) * sq // DECODE_ROWS)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# the split-KV kernel's int32 counts, one buffer per (device, stream): the
+# last split of a group to finish merges the group and sets its count
+# back to zero, so a buffer is zero before every launch on its stream
+_decode_counts = {}
+
+
+def _counts(device, stream: int, n: int) -> torch.Tensor:
+    buf = _decode_counts.get((device.index, stream))
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _decode_counts[(device.index, stream)] = buf
+    return buf
 
 
 def _mask(q, k, causal: bool, q_seg, kv_seg) -> torch.Tensor:
@@ -180,8 +243,11 @@ def _strides(*tensors):
         *(st for t in tensors for st in t.stride()[:3]))
 
 
-def _launch(q, k, v, *, causal: bool, q_seg, kv_seg,
-            scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+def _launch(q, k, v, *, causal: bool, q_seg, kv_seg, scale: float,
+            max_sq: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2 on CUDA tensors: the split-KV design up to ``max_sq`` q rows
+    (default ``DECODE_MAX_SQ`` of the type; ``chip_smoke.py`` sets it to
+    time the two designs at one shape), else the 64-row one."""
     b, sq, hq, d = q.shape
     _, sk, hkv, _ = k.shape
     _check_inputs("flash_fwd", q, k, v)
@@ -190,15 +256,37 @@ def _launch(q, k, v, *, causal: bool, q_seg, kv_seg,
     if o.numel() == 0:
         return o, lse
     q_seg, kv_seg = _segments(q_seg, kv_seg, b, sq, sk, q.device)
-    fn = library("flash_fwd").flash_fwd
+    lib = library("flash_fwd")
+    if max_sq is None:
+        max_sq = DECODE_MAX_SQ[q.dtype]
+    plan = decode_plan(b, sq, sk, hq, hkv, _sm_count(q.device.index),
+                       max_sq)
+    args = (_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            o.data_ptr(), lse.data_ptr(), _ptr(q_seg), _ptr(kv_seg))
     with torch.cuda.device(q.device):
-        code = fn(_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
-                  v.data_ptr(), o.data_ptr(), lse.data_ptr(), _ptr(q_seg),
-                  _ptr(kv_seg), b, sq, sk, hq, hkv, d, _strides(q, k, v, o),
-                  int(causal), float(scale),
-                  torch.cuda.current_stream(q.device).cuda_stream)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if plan is None:
+            code = lib.flash_fwd(*args, b, sq, sk, hq, hkv, d,
+                                 _strides(q, k, v, o), int(causal),
+                                 float(scale), stream)
+        else:  # the splits' partial (acc, m and l) for the merge
+            split_rows, n_split = plan
+            part_acc = part_ml = counts = None
+            if n_split > 1:
+                part_acc = torch.empty((n_split, b, sq, hq, d),
+                                       dtype=torch.float32, device=q.device)
+                part_ml = torch.empty((n_split, b, sq, hq, 2),
+                                      dtype=torch.float32, device=q.device)
+                counts = _counts(q.device, stream,
+                                 b * hkv * _row_groups(sq, hq, hkv))
+            code = lib.flash_fwd_decode(
+                *args, _ptr(part_acc), _ptr(part_ml), _ptr(counts), b, sq,
+                sk, hq, hkv, d, _strides(q, k, v, o), int(causal),
+                float(scale), split_rows, n_split, stream)
     check("flash_fwd", code)
     flash_attention.launches += 1
+    if plan is not None:
+        flash_attention.decode_launches += 1
     if q_seg is not None:
         flash_attention.segment_launches += 1
     return o, lse
@@ -338,6 +426,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+flash_attention.decode_launches = 0
 flash_attention.segment_launches = 0
 flash_attention.dq_launches = 0
 flash_attention.dkv_launches = 0

@@ -165,6 +165,33 @@ def test_chip_smoke_spill_check_reads_ptxas_reports(spills, ok):
             chip_smoke.check_no_spill(reports)
 
 
+@pytest.mark.parametrize("shape,want", [
+    ((1, 1, 528, 32, 8), (32, 17)),    # the dense cache's decode: 136 blocks
+    ((2, 1, 4096, 32, 8), (256, 16)),  # past the SMs: 8 chunks a split
+    ((2, 1, 1, 8, 2), (32, 1)),        # one chunk: one split, no merge
+    ((1, 1, 33, 8, 8), (32, 2)),
+    ((1, 1, 10000, 32, 1), (96, 105)),  # rep 32: two row groups a kv head
+    ((1, 2, 528, 32, 8), None),        # past max_sq: the 64-row kernels
+    ((1, 1, 0, 32, 8), None),          # no kv row
+])
+def test_decode_plan_sizes_the_splits(shape, want):
+    """K2's split-KV plan (no card needed): whole 32-row chunks a split,
+    the splits covering the kv axis with no empty one, and about two
+    blocks an SM (132 SMs) unless each split is one chunk already."""
+    b, sq, sk, hq, hkv = shape
+    plan = t_flash.decode_plan(b, sq, sk, hq, hkv, sms=132, max_sq=1)
+    assert plan == want
+    if plan is None:
+        return
+    split_rows, n_split = plan
+    chunk = t_flash.DECODE_CHUNK
+    assert split_rows % chunk == 0
+    assert (n_split - 1) * split_rows < sk <= n_split * split_rows
+    groups = -(-(hq // hkv) * sq // t_flash.DECODE_ROWS)  # row groups
+    blocks = n_split * b * hkv * groups
+    assert blocks <= 2 * 132 + b * hkv * groups or split_rows == chunk
+
+
 def _split_rows(page):
     """Rows of one K1 split: the smallest block table with two splits
     is one page wider than a split."""
@@ -281,6 +308,164 @@ def test_flash_kernel_at_sq1_over_a_growing_cache_matches_plain_on_card(
         _close(o, o_p, **(F32 if dtype == "float32" else BF16),
                err_msg=f"sk {sk}")
         _close(lse, lse_p, rtol=0, atol=1e-3, err_msg=f"sk {sk}")
+
+
+def _fused_kv(rng, b, sk, hkv, d, dt, aligned=True):
+    """k and v on the card as strided views of one fused [B, Sk, 2 Hkv,
+    D] tensor, as in training; not ``aligned``: views one float past a
+    16-byte boundary (float32 only: K2's and K3's 4-byte copies)."""
+    pad = 0 if aligned else 1
+    kv = torch.from_numpy(rng.standard_normal((b, sk, 2 * hkv, d + pad))
+                          .astype(np.float32)).to("cuda", dt)[..., pad:]
+    return kv[:, :, :hkv], kv[:, :, hkv:]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [16, 32, 64, 96, 128, 256])
+@pytest.mark.parametrize("rep", [1, 2, 4, 8])
+def test_flash_decode_kernel_matches_plain_on_card(dtype, d, rep):
+    """K2's split-KV design at Sq = 1 (B 2, 2 kv heads, GQA rep 1 to 8)
+    at kv lengths around its 32-row chunks and its splits and far past
+    them, k and v strided views of one fused tensor; launched once a
+    call, counted by decode_launches."""
+    _need_card()
+    rng = np.random.default_rng(15)
+    dt = getattr(torch, dtype)
+    hkv = 2
+    for sk in (1, 2, 31, 32, 33, 63, 64, 65, 1000, 4096):
+        q = torch.from_numpy(rng.standard_normal((2, 1, hkv * rep, d))
+                             .astype(np.float32)).to("cuda", dt)
+        k, v = _fused_kv(rng, 2, sk, hkv, d, dt)
+        before = (t_flash.flash_attention.launches,
+                  t_flash.flash_attention.decode_launches)
+        o, lse = t_flash.flash_attention(q, k, v, causal=True,
+                                         return_lse=True)
+        o_p, lse_p = t_flash.flash_attention_plain(
+            q, k, v, causal=True, q_seg=None, kv_seg=None, scale=d ** -0.5)
+        torch.cuda.synchronize()
+        assert (t_flash.flash_attention.launches,
+                t_flash.flash_attention.decode_launches) == (
+                    before[0] + 1, before[1] + 1), f"sk {sk}"
+        _close(o, o_p, **(F32 if dtype == "float32" else BF16),
+               err_msg=f"sk {sk}")
+        _close(lse, lse_p, rtol=0, atol=1e-3, err_msg=f"sk {sk}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [16, 32, 64, 96, 128, 256])
+def test_flash_decode_kernel_with_segments_matches_plain_on_card(dtype, d):
+    """K2's split-KV design with segment ids, causal and not, at Sq 1 and
+    at the largest Sq it takes (DECODE_MAX_SQ), over 300 kv rows (several
+    splits; float32 also with k and v off 16-byte alignment): batch row
+    1's first q row matches no kv row, so o = 0 and lse = -1e30 there."""
+    _need_card()
+    rng = np.random.default_rng(16)
+    dt = getattr(torch, dtype)
+    sk, hq, hkv = 300, 8, 2
+    kv_seg = np.ones((2, sk), np.int32)
+    kv_seg[0, :100] = 0
+    for sq in sorted({1, t_flash.DECODE_MAX_SQ[dt]}):
+        q_seg = np.ones((2, sq), np.int32)
+        q_seg[1, 0] = 7
+        segs = (torch.from_numpy(q_seg).cuda(),
+                torch.from_numpy(kv_seg).cuda())
+        for causal in (True, False):
+            for aligned in ((True, False) if dtype == "float32" else (True,)):
+                q = torch.from_numpy(rng.standard_normal((2, sq, hq, d))
+                                     .astype(np.float32)).to("cuda", dt)
+                k, v = _fused_kv(rng, 2, sk, hkv, d, dt, aligned)
+                before = t_flash.flash_attention.decode_launches
+                o, lse = t_flash.flash_attention(
+                    q, k, v, causal=causal, segment_ids=segs,
+                    return_lse=True)
+                o_p, lse_p = t_flash.flash_attention_plain(
+                    q, k, v, causal=causal, q_seg=segs[0], kv_seg=segs[1],
+                    scale=d ** -0.5)
+                torch.cuda.synchronize()
+                what = f"sq {sq} causal {causal} aligned {aligned}"
+                assert t_flash.flash_attention.decode_launches == \
+                    before + 1, what
+                _close(o, o_p, **(F32 if dtype == "float32" else BF16),
+                       err_msg=what)
+                _close(lse, lse_p, rtol=0, atol=1e-3, err_msg=what)
+                assert (o[1, 0] == 0).all() and (lse[1, 0] == -1e30).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [16, 32, 64, 96, 128, 256])
+def test_flash_decode_threshold_on_card(dtype, d):
+    """The last Sq that takes K2's split-KV design (DECODE_MAX_SQ) and
+    the first that takes the 64-row kernels, causal over 700 kv rows with
+    GQA 8/2: each against the plain version, the split counted only
+    below the threshold."""
+    _need_card()
+    rng = np.random.default_rng(17)
+    dt = getattr(torch, dtype)
+    last = t_flash.DECODE_MAX_SQ[dt]
+    for sq, split in ((last, 1), (last + 1, 0)):
+        q = torch.from_numpy(rng.standard_normal((2, sq, 8, d))
+                             .astype(np.float32)).to("cuda", dt)
+        k, v = _fused_kv(rng, 2, 700, 2, d, dt)
+        before = (t_flash.flash_attention.launches,
+                  t_flash.flash_attention.decode_launches)
+        o, lse = t_flash.flash_attention(q, k, v, causal=True,
+                                         return_lse=True)
+        o_p, lse_p = t_flash.flash_attention_plain(
+            q, k, v, causal=True, q_seg=None, kv_seg=None, scale=d ** -0.5)
+        torch.cuda.synchronize()
+        assert (t_flash.flash_attention.launches,
+                t_flash.flash_attention.decode_launches) == (
+                    before[0] + 1, before[1] + split), f"sq {sq}"
+        _close(o, o_p, **(F32 if dtype == "float32" else BF16),
+               err_msg=f"sq {sq}")
+        _close(lse, lse_p, rtol=0, atol=1e-3, err_msg=f"sq {sq}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [16, 32, 64, 96, 128, 256])
+@pytest.mark.parametrize("case", ["causal", "segments", "unaligned"])
+def test_flash_bwd_dq_f32_at_tile_edges_matches_plain_on_card(d, case):
+    """K3's float32 design at a q length off its q tile (64 rows, 32 at
+    D 256) and a kv length off its 64-row kv tile (97 queries over 161
+    keys, GQA 8/2, v a strided view): causal; packed segments crossing
+    both tiles' edges with a q row that matches no kv row (dq = 0 there);
+    and causal with every operand one float off 16-byte alignment (its
+    4-byte copies)."""
+    _need_card()
+    rng = np.random.default_rng(18)
+    sq, sk, hq, hkv = 97, 161, 8, 2
+    aligned = case != "unaligned"
+    segs = None
+    if case == "segments":
+        kv_seg = np.stack([np.repeat([0, 1, 2, 3], [20, 50, 60, 31]),
+                           np.repeat([0, 1, 2], [50, 50, 61])]).astype(
+                               np.int32)
+        q_seg = kv_seg[:, -sq:].copy()
+        q_seg[1, 5] = 9
+        segs = (torch.from_numpy(q_seg).cuda(),
+                torch.from_numpy(kv_seg).cuda())
+    pad = 0 if aligned else 1
+    q, do = (torch.from_numpy(rng.standard_normal((2, sq, hq, d + pad))
+                              .astype(np.float32)).cuda()[..., pad:]
+             for _ in range(2))
+    k, v = _fused_kv(rng, 2, sk, hkv, d, torch.float32, aligned)
+    kw = dict(causal=True, q_seg=None if segs is None else segs[0],
+              kv_seg=None if segs is None else segs[1], scale=d ** -0.5)
+    o, lse = t_flash.flash_attention(q, k, v, causal=True, segment_ids=segs,
+                                     return_lse=True)
+    delta = t_flash.attention_delta(o, do)
+    before = t_flash.flash_attention.dq_launches
+    dq = t_flash.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+    want = t_flash.flash_bwd_dq_plain(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    assert t_flash.flash_attention.dq_launches == before + 1
+    assert torch.isfinite(dq).all()
+    _close(dq, want, **F32_BWD)
+    if case == "segments":
+        assert (lse[1, 5] == -1e30).all() and (dq[1, 5] == 0).all()
 
 
 def _bwd_inputs(rng, case, d, dt):

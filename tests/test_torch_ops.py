@@ -181,12 +181,25 @@ def _qkv(rng, sq, sk, hq=4, hkv=2, d=32, b=2):
 @pytest.mark.parametrize("case", ["causal_sq_lt_sk", "unaligned",
                                   "segment_tuple", "fully_masked_rows",
                                   "d96_segment_tuple",
-                                  "d256_causal_sq_lt_sk"])
+                                  "d256_causal_sq_lt_sk",
+                                  "sq1_gqa_long_sk",
+                                  "sq1_segments_fully_masked"])
 def test_flash_forward_with_lse_matches_jax_kernel(case):
+    """The forward's contract against the Pallas kernel; the "sq1" cases
+    are the one-token decode that K2's split-KV design takes on a card
+    (GQA 8/2 over a kv axis of several splits; segment ids, one batch
+    row's query matching no kv row: o = 0, lse = -1e30)."""
     rng = np.random.default_rng(4)
     segs, causal = None, True
     if case == "causal_sq_lt_sk":
         q, k, v = _qkv(rng, 20, 45)
+    elif case == "sq1_gqa_long_sk":
+        q, k, v = _qkv(rng, 1, 300, hq=8, hkv=2)
+    elif case == "sq1_segments_fully_masked":
+        q, k, v = _qkv(rng, 1, 100, hq=8, hkv=2)
+        kv_seg = (np.arange(100)[None] >= np.array([[40], [0]])).astype(
+            np.int32)
+        segs = (np.array([[0], [0]], np.int32), kv_seg)
     elif case.startswith("d"):  # head dims 96 and 256 (the rest are D 32)
         q, k, v = _qkv(rng, 12, 30, d=int(case[1:].split("_")[0]))
         if case == "d96_segment_tuple":
@@ -219,6 +232,9 @@ def test_flash_forward_with_lse_matches_jax_kernel(case):
     if case == "fully_masked_rows":
         assert (to[:, 10:] == 0).all()
         assert (tl[:, 10:] == -1e30).all()
+    if case == "sq1_segments_fully_masked":  # row 1: every kv id is 1
+        assert (to[1] == 0).all() and (tl[1] == -1e30).all()
+        assert (to[0] != 0).any()
 
 
 def _bwd_case(case):
