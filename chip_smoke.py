@@ -15,7 +15,8 @@ every thread's traceback and exit code 1.
    kernels must have HGMMA and UTMALDG, the bf16 K1 kernel a bulk copy and
    tensor-core instructions, and each has an instance at every head dim of
    KERNEL_HEAD_DIMS (at D 256 the two-warpgroup K2 and K4, which must
-   spill nothing);
+   spill nothing, as must the float32 K2 and K4 at every head dim but
+   F32_SPILLS');
 3. kernels: each kernel against its plain PyTorch version at Llama-3-8B
    shapes in bf16 (max error against a stated tolerance), with CUDA-event
    times of the kernel, the plain version and one PyTorch library call,
@@ -171,6 +172,9 @@ every thread's traceback and exit code 1.
    each held to the same steps with attention through the plain versions
    on the card. Rows "<kernel>_d<D>" (bf16, float32 under "f32") count
    the launches of these served and trained runs.
+The float32 phases (4d, 5, dense_cache, 8 and head_dims' float32 runs)
+count their K2, K3 and K4 launches: one log line, "f32_launches" in the
+JSON line, and "launches" in the float32 rows (K2's 64-row design).
 With `--parent DIR` (a directory holding an earlier commit's tree, for
 example unpacked by `git archive` into the ignored `_archive/`), phases
 3, 5b, 6 and head_dims also build that tree's paged_decode.cu, flash_fwd.cu
@@ -520,6 +524,21 @@ def timed(fn, flush, parent_fn=None):
     return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
 
 
+# K2's (either design; "flash_fwd_split" of them the split-KV one), K3's
+# and K4's launch counters, read around the float32 phases
+F32_COUNTERS = {"flash_fwd": "launches", "flash_fwd_split": "decode_launches",
+                "flash_bwd_dq": "dq_launches", "flash_bwd_dkv": "dkv_launches"}
+
+
+def kernel_counts(since=None) -> dict:
+    """K2's, K3's and K4's launch counters now, or their growth since an
+    earlier reading of this function."""
+    from ray_tpu_torch.ops.flash_attention import flash_attention
+
+    now = {k: getattr(flash_attention, a) for k, a in F32_COUNTERS.items()}
+    return now if since is None else {k: now[k] - since[k] for k in now}
+
+
 SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP", "HMMA")
 
 
@@ -581,9 +600,24 @@ PAIR_ENTRIES = {"flash_fwd_wgmma": "flash_fwd_wgmma_pair",
                 "bwd_dkv_wgmma": "bwd_dkv_wgmma_pair"}
 
 
+# the float32 K2 and K4 (register tiles): an instance at every head dim,
+# none spilling but these, each by at most F32_SPILL_BYTES: they were
+# faster on the card than their variants that spill nothing
+# (chip_variants.py: K2's S loop unrolled once, K4 at D 64 in two stages
+# and one block an SM; PERF.md)
+F32_ENTRIES = ("flash_fwd_f32", "bwd_dkv_f32")
+F32_SPILLS = {("flash_fwd_f32", 32), ("flash_fwd_f32", 64),
+              ("flash_fwd_f32", 96), ("bwd_dkv_f32", 64)}
+F32_SPILL_BYTES = 128
+
+
 def check_no_spill(reports) -> None:
     """The -Xptxas -v reports: each entry function's spill stores and
-    loads; the two-warpgroup D-256 entries must spill nothing."""
+    loads; the two-warpgroup D-256 entries and the float32 K2 and K4 at
+    every head dim must spill nothing, but F32_SPILLS' instances, which
+    may spill up to F32_SPILL_BYTES."""
+    from ray_tpu_torch.ops.flash_attention import KERNEL_HEAD_DIMS
+
     spills, fn = {}, None
     for rep in reports.values():
         for line in rep.splitlines():
@@ -595,13 +629,18 @@ def check_no_spill(reports) -> None:
             if m and fn is not None:
                 spills[fn] = (int(m.group(1)), int(m.group(2)))
                 fn = None
-    for name in PAIR_ENTRIES.values():
-        fns = [f for f in spills if f"{name}ILi256E" in f]
-        assert fns, f"no ptxas report of {name}<256>"
+    held = [(name, 256) for name in PAIR_ENTRIES.values()]
+    held += [(name, d) for name in F32_ENTRIES for d in KERNEL_HEAD_DIMS]
+    for name, d in held:
+        fns = [f for f in spills if f"{name}ILi{d}E" in f]
+        assert fns, f"no ptxas report of {name}<{d}>"
         for f in fns:
-            log(f"  {name}<256>: {spills[f][0]} bytes spill stores, "
+            log(f"  {name}<{d}>: {spills[f][0]} bytes spill stores, "
                 f"{spills[f][1]} bytes spill loads")
-            assert spills[f] == (0, 0), f"{f} spills"
+            if (name, d) in F32_SPILLS:
+                assert max(spills[f]) <= F32_SPILL_BYTES, f"{f} spills"
+            else:
+                assert spills[f] == (0, 0), f"{f} spills"
 
 
 def profile_decode_kernels(torch, fn, calls: int = 20) -> dict:
@@ -2727,6 +2766,7 @@ def run_dense_cache(torch, flush, smi):
     rng = np.random.default_rng(5)
     ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, n))).cuda()
     hd, hkv = cfg.head_dim_, cfg.num_kv_heads
+    counts0 = kernel_counts()
     with torch.inference_mode():
         full = model(ids).float()
         empty = (torch.zeros((cfg.num_layers, 1, 0, hkv, hd),
@@ -2748,6 +2788,7 @@ def run_dense_cache(torch, flush, smi):
         step_ms = (time.perf_counter() - t0) / n_decode * 1e3
         launches = flash_attention.launches - before
         split = flash_attention.decode_launches - before_split
+    f32_counts = kernel_counts(counts0)  # full forward, prefill, decode
     assert tuple(cache[0].shape) == (cfg.num_layers, 1, n, hkv, hd)
     log(f"dense cache (llama3-8b width, 2 layers, f32): prefill "
         f"{n_prefill} then {n_decode} one-token steps; max|logits - full "
@@ -2827,7 +2868,8 @@ def run_dense_cache(torch, flush, smi):
         "logits_max_abs_err_prefill": errs[0],
         "logits_max_abs_err_decode": max(errs[1:]),
         "decode_step_ms": step_ms, "k2_launches_at_sq1": launches,
-        "k2_split_kv_launches": split, "split_vs_tiles": sweep}
+        "k2_split_kv_launches": split, "split_vs_tiles": sweep,
+        "f32_launches": f32_counts}
 
 
 def decode_sweep(torch, flush, gen, sk, hq, hkv, d):
@@ -3819,8 +3861,13 @@ def run_head_dims(torch, smi):
             launches[d][kname] += c
         out["engine"][d] = {"layers": layers, **{k: eng[k] for k in (
             "ttft_ms", "decode_tok_s", "wall_s")}, "launches": counts}
+    # the float32 path's launches at each D: phase 5's check and the
+    # float32 trainers
+    f32_launches = {d: dict.fromkeys(F32_COUNTERS, 0) for d in HEAD_DIM_WIDTHS}
     for d in (96, 256):
+        counts0 = kernel_counts()
         out["reference"][d] = hd_reference(torch, d)
+        f32_launches[d] = kernel_counts(counts0)
     for d in (96, 256, 32):
         for dtype, (rtol_loss, rtol_gnorm) in (
                 ("bfloat16", (RTOL_PP_LOSS, RTOL_PP_GNORM)),
@@ -3849,6 +3896,8 @@ def run_head_dims(torch, smi):
             for kname, c in zip(("flash_fwd", "flash_bwd_dq",
                                  "flash_bwd_dkv"), counts):
                 launches[d][kname] += c
+                if dtype == "float32":
+                    f32_launches[d][kname] += c
             out["train"][f"{d}_{dtype}"] = {
                 "params": n_params, "losses": loss, "plain_losses": loss_p,
                 "grad_norms": gnorm, "plain_grad_norms": gnorm_p,
@@ -3856,6 +3905,12 @@ def run_head_dims(torch, smi):
     for d, counts in launches.items():
         for kname, c in counts.items():
             rows[f"{kname}_d{d}"]["launches"] = c
+    for d, counts in f32_launches.items():  # K2's 64-row design alone
+        rows[f"flash_fwd_d{d}"]["f32"]["launches"] = \
+            counts["flash_fwd"] - counts["flash_fwd_split"]
+        for kname in ("flash_bwd_dq", "flash_bwd_dkv"):
+            rows[f"{kname}_d{d}"]["f32"]["launches"] = counts[kname]
+    out["f32_launches"] = f32_launches
     return rows, out
 
 
@@ -3999,15 +4054,22 @@ def main() -> int:
         counts[kname] += c
     gc.collect()
     torch.cuda.empty_cache()
+    # the float32 phases' K2/K3/K4 launches (4d, 5, dense_cache, 8, and
+    # head_dims' float32 runs)
+    f32 = {}
+    counts0 = kernel_counts()
     moe["reference"] = run_phase("moe_reference",
                                  DEADLINES_S["moe_reference"],
                                  check_moe_reference, torch)
+    f32["moe_reference"] = kernel_counts(counts0)
     gc.collect()
     torch.cuda.empty_cache()
 
     # 5. reference check
+    counts0 = kernel_counts()
     logits_err = run_phase("reference", DEADLINES_S["reference"],
                            check_reference, torch)
+    f32["reference"] = kernel_counts(counts0)
 
     # 5b. the dense KV-cache path: K2 at Sq = 1
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
@@ -4015,6 +4077,7 @@ def main() -> int:
                                   run_dense_cache, torch, flush, smi)
     kernels.update(decode_row)
     counts["flash_fwd_decode"] = decode_row["flash_fwd_decode"]["launches"]
+    f32["dense_cache"] = dense["f32_launches"]
     del flush
     gc.collect()
     torch.cuda.empty_cache()
@@ -4086,9 +4149,11 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 8. one float32 step, card against CPU
+    counts0 = kernel_counts()
     train["reference"] = run_phase("train_reference",
                                    DEADLINES_S["train_reference"],
                                    check_train_reference, torch)
+    f32["train_reference"] = kernel_counts(counts0)
 
     # 9. the RL learners, card against CPU
     rllib = run_phase("rllib", DEADLINES_S["rllib"], run_rllib, torch, smi)
@@ -4109,6 +4174,23 @@ def main() -> int:
                                    run_head_dims, torch, smi)
     kernels.update(hd_rows)
     counts.update({kname: r["launches"] for kname, r in hd_rows.items()})
+    for d, c in head_dims["f32_launches"].items():
+        f32[f"head_dims_d{d}"] = c
+
+    # the float32 training rows' launches from their main paths: D 64
+    # (llama-1b width) phase 8's step, D 128 (Mixtral's and llama3-8b's
+    # widths) phases 4d, 5 and dense_cache; K2's 64-row design alone (its
+    # split-KV launches are the decode row's)
+    log(f"float32 path launches (K2 either design, flash_fwd_split of "
+        f"them split-KV; K3; K4) by phase: {json.dumps(f32)}")
+    for key, phases in (("f32", ("train_reference",)),
+                        ("f32_d128", ("moe_reference", "reference",
+                                      "dense_cache"))):
+        c = {k: sum(f32[ph][k] for ph in phases) for k in F32_COUNTERS}
+        kernels["flash_fwd_train"][key]["launches"] = \
+            c["flash_fwd"] - c["flash_fwd_split"]
+        for kname in ("flash_bwd_dq", "flash_bwd_dkv"):
+            kernels[kname][key]["launches"] = c[kname]
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4165,7 +4247,7 @@ def main() -> int:
         "pp_engine": pp_eng, "dense_cache": dense,
         "engine_v2": engine_v2, "moe": moe, "train": train,
         "rllib": rllib, "entry": entry_out, "head_dims": head_dims,
-        "card": smi}
+        "f32_launches": f32, "card": smi}
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -99,3 +99,58 @@ inline bool rows_16b(const void* base, int elem_bytes, long long s0,
   return reinterpret_cast<uintptr_t>(base) % 16 == 0 && s0 % v == 0 &&
          s1 % v == 0 && s2 % v == 0;
 }
+
+// float32 register tiles (K2, K3 and K4 in float32): a dot product of 4
+// head dims, a 16-byte shared load, and rows of an operand staged by
+// cp.async
+__device__ __forceinline__ float dot4(float4 a, float4 b, float c) {
+  c = fmaf(a.x, b.x, c);
+  c = fmaf(a.y, b.y, c);
+  c = fmaf(a.z, b.z, c);
+  return fmaf(a.w, b.w, c);
+}
+
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// the widest piece (4, 2 or 1 floats) that divides a thread's n head dims
+__host__ __device__ constexpr int piece_width(int n) {
+  return n % 4 == 0 ? 4 : n % 2 == 0 ? 2 : 1;
+}
+
+// VW consecutive floats of shared memory (VW 4, 2 or 1) in one load
+template <int VW>
+__device__ __forceinline__ void lds_piece(const float* p, float* x) {
+  if constexpr (VW == 4) {
+    const float4 t = lds4(p);
+    x[0] = t.x; x[1] = t.y; x[2] = t.z; x[3] = t.w;
+  } else if constexpr (VW == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    x[0] = t.x; x[1] = t.y;
+  } else {
+    x[0] = *p;
+  }
+}
+
+// rows [r0, r0 + rows) of a float32 [*, D] operand with row stride ss
+// into dst (row stride RS) by cp.async, NT threads: rows at or past n are
+// zeros
+template <int D, int RS, int NT>
+__device__ __forceinline__ void stage_rows(float* dst, const float* src,
+                                           long long ss, int r0, int rows,
+                                           int n, bool vec16) {
+  if (vec16) {
+    for (int i = threadIdx.x; i < rows * (D / 4); i += NT) {
+      const int r = i / (D / 4), e = i % (D / 4) * 4, row = r0 + r;
+      cp_async<16>(dst + r * RS + e, src + min(row, n - 1) * ss + e,
+                   row < n ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * D; i += NT) {
+      const int r = i / D, e = i % D, row = r0 + r;
+      cp_async<4>(dst + r * RS + e, src + min(row, n - 1) * ss + e,
+                  row < n ? 4 : 0);
+    }
+  }
+}

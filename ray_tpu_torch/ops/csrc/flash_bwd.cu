@@ -33,10 +33,9 @@
 // computing S^T and the other dP^T, each owning half of dK's and dV's
 // columns (registers): see each kernel.
 // Two variants each, chosen by the input type, as in K2: an exact
-// scalar-FMA float32 variant (256 threads; K3's on register tiles read
-// as 16-byte shared loads with its K/V tiles copied in flight by
-// cp.async, K4's on 4x4 patches read a float at a time: see
-// bwd_dq_f32) and, in bf16, a variant built for Hopper: wgmma with TMA
+// scalar-FMA float32 variant (register tiles read as 16-byte shared loads,
+// their operands copied in flight by cp.async: see bwd_dq_f32 and
+// bwd_dkv_f32) and, in bf16, a variant built for Hopper: wgmma with TMA
 // through an mbarrier ring, p and ds rounded to bf16 in registers as the
 // A operand of the next product, and every transposed operand read
 // MN-major through the descriptor, so no tile is copied transposed (see
@@ -44,8 +43,7 @@
 // Not done yet: K3 at D 256 in two warpgroups; a producer warp with
 // setmaxnreg, and overlapping one tile's exp with the next tile's
 // products; one fused kernel writing dq by atomics (FlashAttention-2's
-// layout) instead of two passes; K4's float32 variant on K3's register
-// tiles and copies in flight; two K3 float32 blocks an SM at D 96 and
+// layout) instead of two passes; two K3 float32 blocks an SM at D 96 and
 // 128 (their tiles take 145,920 and 186,880 bytes of shared memory).
 #include "hopper.cuh"
 
@@ -73,7 +71,7 @@ struct BwdParams {
   long long v_sb, v_ss, v_sh, o_sb, o_ss, o_sh;  // o_*: strides of do
   int causal;
   float scale;
-  int vec16;  // q, k, v, do rows copy in 16-byte pieces (float32 K3)
+  int vec16;  // q, k, v, do rows copy in 16-byte pieces (float32 K3, K4)
 };
 
 // number of kv tiles a q tile of `rows` rows starting at q0 reads (K2's
@@ -136,9 +134,32 @@ __device__ __forceinline__ size_t row_index(const BwdParams& p, int b,
 //     or that carries segment ids, whose kv ids are staged with the K tile
 //     (the warp that writes a row of dS also reads it: __syncwarp, no
 //     block barrier, between the two).
-// K4 (bwd_dkv_f32) keeps its first, scalar design: its own tile (kv rows)
-// has f32_rows<D>() rows, 64 or 32 at D 256, and each thread owns a
-// (rows / 16) x 4 patch of the score tile, read one float at a time.
+// K4 (bwd_dkv_f32, one block per (kv tile, kv head, batch row), heaviest
+// kv tiles first) is K3's design transposed, bound the same way (4 D FMAs
+// per live pair):
+//   - thread (ty, tx) owns kv rows ty + TY i and q columns tx + 16 j of
+//     S^T and dP^T, reading its rows of k and v (each one broadcast) and
+//     its columns' rows of q and dO 4 head dims at a time as float4s: with
+//     4 rows a thread, 16 loads for 128 FMAs. P^T, then dS^T in its place,
+//     go through the rows' block of shared memory, which only the same
+//     warp reads back; dV += P^T dO and dK += dS^T Q own rows ty + TY i
+//     and head dims VW tx + 16 VW n + w, as K3's dQ;
+//   - kv tiles of f32_rows<D>() rows (32 at D 256), 256 threads, 4 rows a
+//     thread; dK and dV stay in float32 registers for the whole GQA group.
+//     At D 256 the block is two halves of 128 threads: half 0 computes S^T
+//     and P^T, half 1 dP^T and, from the P^T that half 0 wrote, dS^T; each
+//     half owns 128 of dK's and dV's head dims (one thread holding all 256
+//     took 255 registers and spilled);
+//   - copies in flight: K and V once; the (q head, q tile) items stream
+//     their q and dO rows, lse, delta and q segment ids by cp.async, item
+//     it + 1 landing during item it in two stages (one block barrier an
+//     item), or refilled after the item in one stage (D 64 and 256);
+//   - shared memory: 87,808 bytes at D 64 (one stage), so two blocks
+//     share an SM there (a few bytes spill at 128 registers); 49,664 at D
+//     16, 74,240 at D 32, 172,544 at D 96, 221,696 at D 128 and 217,856
+//     at D 256 (P^T and dS^T in two buffers), one block;
+//   - masks only on an item that crosses the causal limit, the sk or sq
+//     edge, or that carries segment ids.
 
 template <int D>
 __host__ __device__ constexpr int f32_rows() {
@@ -172,47 +193,41 @@ static_assert(DqF32<64>::min_blocks == 2 && DqF32<96>::min_blocks == 1,
               "K3 f32 blocks an SM");
 static_assert(DqF32<256>::bytes <= 232448, "K3 f32 shared memory");
 
-// K4's float32 shared memory: k, v [BK][D+1]; q, do [kBQ][D+1]; p, ds
-// [BK][kBQ+1]; 3 vectors
+// K4's float32 tiles: offsets in floats into shared memory
 template <int D>
-__host__ __device__ constexpr size_t dkv_f32_smem() {
-  constexpr size_t bk = f32_rows<D>();
-  return sizeof(float) * ((2 * bk + 2 * kBQ) * (D + 1) + 2 * bk * (kBQ + 1) +
-                          3 * kBQ);
-}
-
-__device__ __forceinline__ float dot4(float4 a, float4 b, float c) {
-  c = fmaf(a.x, b.x, c);
-  c = fmaf(a.y, b.y, c);
-  c = fmaf(a.z, b.z, c);
-  return fmaf(a.w, b.w, c);
-}
-
-__device__ __forceinline__ float4 lds4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-// rows [r0, r0 + rows) of a float32 [*, D] operand with row stride ss
-// into dst (row stride RS) by cp.async, NT threads: rows at or past n are
-// zeros
-template <int D, int RS, int NT>
-__device__ __forceinline__ void stage_rows(float* dst, const float* src,
-                                           long long ss, int r0, int rows,
-                                           int n, bool vec16) {
-  if (vec16) {
-    for (int i = threadIdx.x; i < rows * (D / 4); i += NT) {
-      const int r = i / (D / 4), e = i % (D / 4) * 4, row = r0 + r;
-      cp_async<16>(dst + r * RS + e, src + min(row, n - 1) * ss + e,
-                   row < n ? 16 : 0);
-    }
-  } else {
-    for (int i = threadIdx.x; i < rows * D; i += NT) {
-      const int r = i / D, e = i % D, row = r0 + r;
-      cp_async<4>(dst + r * RS + e, src + min(row, n - 1) * ss + e,
-                  row < n ? 4 : 0);
-    }
-  }
-}
+struct DkvF32 {
+  // at D 256 the block is two halves of 128 threads: one computes S^T,
+  // the other dP^T, and each owns half of dK's and dV's head dims (a
+  // thread holding all of them took 255 registers)
+  static constexpr bool PAIR = D > 128;
+  static constexpr int NT = kThreads;          // TY x 16 (in each half)
+  static constexpr int TY = (PAIR ? NT / 2 : NT) / 16;
+  static constexpr int BK = f32_rows<D>();     // kv rows of a block
+  static constexpr int A = BK / TY;            // rows of a thread
+  static constexpr int RS = D + 4;             // padded row stride
+  static constexpr int PS = kBQ + 4;           // P^T and dS^T row stride
+  // of the q items: one at D 256, where two do not fit, and at D 64,
+  // where one lets two blocks share an SM; two blocks at D 16 and 32 held
+  // a thread to 128 registers and were slower than one (chip_variants.py)
+  static constexpr int STAGES = D == 64 || D > 128 ? 1 : 2;
+  static constexpr int DC = D / 16 / (PAIR ? 2 : 1);  // dK, dV head dims
+  static constexpr int VW = piece_width(DC);   // a q or dO row's piece
+  static constexpr int k = 0;                  // [BK][RS]
+  static constexpr int v = k + BK * RS;        // [BK][RS]
+  static constexpr int q = v + BK * RS;        // [STAGES][kBQ][RS]
+  static constexpr int dout = q + STAGES * kBQ * RS;   // [STAGES][kBQ][RS]
+  // [BK][PS] P^T, then dS^T in its place; two buffers, P^T and dS^T,
+  // where the halves exchange them
+  static constexpr int pd = dout + STAGES * kBQ * RS;
+  static constexpr int lse = pd + (PAIR ? 2 : 1) * BK * PS;  // [STAGES][kBQ]
+  static constexpr int delta = lse + STAGES * kBQ;     // [STAGES][kBQ]
+  static constexpr int qseg = delta + STAGES * kBQ;    // [STAGES][kBQ] int
+  static constexpr size_t bytes = 4 * (size_t)(qseg + STAGES * kBQ);
+  static constexpr int min_blocks = D == 64 ? 2 : 1;
+};
+static_assert(2 * DkvF32<64>::bytes + 2048 <= 233472, "K4 f32 at D 64");
+static_assert(DkvF32<128>::bytes <= 232448 && DkvF32<256>::bytes <= 232448,
+              "K4 f32 shared memory");
 
 // dS of this thread's A x 4 patch of a kv tile (rows ty + TY i) from S
 // and dP; masked only where the tile needs it (a tile template per case:
@@ -403,152 +418,269 @@ bwd_dq_f32(BwdParams p, int B) {
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads) bwd_dkv_f32(BwdParams p) {
-  constexpr int DS = D + 1, PS = kBQ + 1, DC = D / 16;
-  constexpr int BK = f32_rows<D>(), A = BK / 16;  // kv rows, rows a thread
-  static_assert(dkv_f32_smem<D>() <= 232448, "K4 f32 shared memory");
-  const int kt = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
-  const int rep = p.hq / p.hkv;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int k0 = kt * BK;
-
-  extern __shared__ float smem[];
-  float* k_s = smem;               // [BK][DS]
-  float* v_s = k_s + BK * DS;      // [BK][DS]
-  float* q_s = v_s + BK * DS;      // [kBQ][DS]
-  float* do_s = q_s + kBQ * DS;    // [kBQ][DS]
-  float* p_s = do_s + kBQ * DS;    // [BK][PS]: P^T
-  float* ds_s = p_s + BK * PS;     // [BK][PS]: dS^T
-  float* lse_s = ds_s + BK * PS;   // [kBQ]
-  float* delta_s = lse_s + kBQ;    // [kBQ]
-  int* qseg_s = reinterpret_cast<int*>(delta_s + kBQ);  // [kBQ]
-
-  const float* k = static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const float* v = static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh;
-  for (int i = tid; i < BK * D; i += kThreads) {
-    const int r = i / D, e = i - r * D;
-    const int kpos = k0 + r;
-    const bool in = kpos < p.sk;
-    k_s[r * DS + e] = in ? k[kpos * p.k_ss + e] : 0.f;
-    v_s[r * DS + e] = in ? v[kpos * p.v_ss + e] : 0.f;
+// S^T (or dP^T) of this thread's A x 4 patch: the kv rows ty + TY i of
+// a_s (k or v) against the q columns tx + 16 j of x_s (q or dO), 4 head
+// dims at a time
+template <int D, int A, int TY>
+__device__ __forceinline__ void dkv_f32_scores(float (*s)[4],
+                                               const float* a_s,
+                                               const float* x_s, int ty,
+                                               int tx) {
+  constexpr int RS = DkvF32<D>::RS;
+#pragma unroll
+  for (int i = 0; i < A; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 2
+  for (int e = 0; e < D; e += 4) {
+    float4 xf[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) xf[j] = lds4(x_s + (tx + 16 * j) * RS + e);
+#pragma unroll
+    for (int i = 0; i < A; ++i) {
+      const float4 af = lds4(a_s + (ty + TY * i) * RS + e);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = dot4(af, xf[j], s[i][j]);
+    }
   }
+}
+
+// P^T of this thread's patch from S^T, in place, masked only where the
+// item needs it (a template per case, as dq_f32_ds): a masked pair's p is
+// 0 and its exp is skipped
+template <int A, int TY, bool kMask>
+__device__ __forceinline__ void dkv_f32_p(const BwdParams& p, float (*s)[4],
+                                          const float* lse, const int* qs,
+                                          const int* ks, int q0, int k0,
+                                          int ty, int tx) {
+#pragma unroll
+  for (int i = 0; i < A; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const bool keep = !kMask || live(p, q0 + tx + 16 * j,
+                                       k0 + ty + TY * i, qs[j], ks[i]);
+      s[i][j] = keep ? expf(s[i][j] * p.scale - lse[j]) : 0.f;
+    }
+}
+
+// acc[i] += sum over the item's kBQ q rows c of t[ty + TY i][c] x[c]: t
+// this thread's rows of P^T or dS^T (4 columns a float4), x the item's dO
+// or q rows at head dims VW tx + 16 VW n + w (of the half's at D 256)
+template <int D, int A, int TY>
+__device__ __forceinline__ void dkv_f32_acc(float (*acc)[DkvF32<D>::DC],
+                                            const float* t_s,
+                                            const float* x_s, int ty,
+                                            int tx) {
+  using L = DkvF32<D>;
+  constexpr int VW = L::VW, NV = L::DC / VW;
+#pragma unroll 2
+  for (int c = 0; c < kBQ; c += 4) {
+    float4 t4[A];
+#pragma unroll
+    for (int i = 0; i < A; ++i) t4[i] = lds4(t_s + (ty + TY * i) * L::PS + c);
+#pragma unroll
+    for (int cc = 0; cc < 4; ++cc) {
+      const float* x_row = x_s + (c + cc) * L::RS + VW * tx;
+#pragma unroll
+      for (int n = 0; n < NV; ++n) {
+        float xv[VW];
+        lds_piece<VW>(x_row + 16 * VW * n, xv);
+#pragma unroll
+        for (int i = 0; i < A; ++i) {
+          const float tv = (&t4[i].x)[cc];
+#pragma unroll
+          for (int w = 0; w < VW; ++w)
+            acc[i][n * VW + w] = fmaf(tv, xv[w], acc[i][n * VW + w]);
+        }
+      }
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(DkvF32<D>::NT, DkvF32<D>::min_blocks)
+bwd_dkv_f32(BwdParams p, int B) {
+  using L = DkvF32<D>;
+  constexpr int BK = L::BK, A = L::A, RS = L::RS, NT = L::NT, TY = L::TY;
+  constexpr int DC = L::DC, VW = L::VW, NV = DC / VW;
+  // heaviest first: under causal masking the first kv tiles see most q
+  const int per_tile = p.hkv * B;
+  const int kt = blockIdx.x / per_tile, rest = blockIdx.x % per_tile;
+  const int hk = rest % p.hkv, b = rest / p.hkv;
+  const int rep = p.hq / p.hkv;
+  const int tid = threadIdx.x, half = L::PAIR ? tid / (NT / 2) : 0;
+  const int ty = tid % (NT / (L::PAIR ? 2 : 1)) / 16, tx = tid % 16;
+  const int k0 = kt * BK, offset = p.sk - p.sq;
+  const bool vec16 = p.vec16 != 0;
+
+  extern __shared__ __align__(16) float dkv_smem[];
+  const float* k_s = dkv_smem + L::k;
+  const float* v_s = dkv_smem + L::v;
+  float* pd_s = dkv_smem + L::pd;
+
+  // the (q head, q tile) items from the causal start, q heads outer; item
+  // it into stage st: its q and dO rows, lse, delta and q segment ids
+  const int qb0 = first_q_tile(p, k0);
+  const int nq = max((p.sq + kBQ - 1) / kBQ - qb0, 0), n_items = rep * nq;
+  auto load_item = [&](int it, int st) {
+    const int h = hk * rep + it / nq, q0 = (qb0 + it % nq) * kBQ;
+    stage_rows<D, RS, NT>(
+        dkv_smem + L::q + st * kBQ * RS,
+        static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh, p.q_ss,
+        q0, kBQ, p.sq, vec16);
+    stage_rows<D, RS, NT>(
+        dkv_smem + L::dout + st * kBQ * RS,
+        static_cast<const float*>(p.dout) + b * p.o_sb + h * p.o_sh,
+        p.o_ss, q0, kBQ, p.sq, vec16);
+    if (tid < kBQ) {  // rows past sq: zeros
+      const int qpos = min(q0 + tid, p.sq - 1);
+      const int n = q0 + tid < p.sq ? 4 : 0;
+      const int at = st * kBQ + tid;
+      cp_async<4>(dkv_smem + L::lse + at, p.lse + row_index(p, b, qpos, h),
+                  n);
+      cp_async<4>(dkv_smem + L::delta + at,
+                  p.delta + row_index(p, b, qpos, h), n);
+      if (p.qseg != nullptr)
+        cp_async<4>(dkv_smem + L::qseg + at, p.qseg + (size_t)b * p.sq + qpos,
+                    n);
+    }
+  };
+
+  // the first commit group: K, V and item 0. Then, with two stages, item
+  // it + 1 at the start of item it; with one, after item it
+  stage_rows<D, RS, NT>(
+      dkv_smem + L::k,
+      static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh, p.k_ss, k0,
+      BK, p.sk, vec16);
+  stage_rows<D, RS, NT>(
+      dkv_smem + L::v,
+      static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh, p.v_ss, k0,
+      BK, p.sk, vec16);
+  if (n_items > 0) load_item(0, 0);
+  cp_async_commit();
 
   float dk[A][DC], dv[A][DC];
   int ks[A];
 #pragma unroll
-  for (int a = 0; a < A; ++a) {
-    const int kpos = k0 + ty + 16 * a;
-    ks[a] = p.kseg != nullptr ? p.kseg[(size_t)b * p.sk + min(kpos, p.sk - 1)]
-                              : 0;
+  for (int i = 0; i < A; ++i) {
+    const int kpos = min(k0 + ty + TY * i, p.sk - 1);
+    ks[i] = p.kseg != nullptr ? p.kseg[(size_t)b * p.sk + kpos] : 0;
 #pragma unroll
-    for (int c = 0; c < DC; ++c) dk[a][c] = dv[a][c] = 0.f;
+    for (int c = 0; c < DC; ++c) dk[i][c] = dv[i][c] = 0.f;
   }
 
-  const int qb0 = first_q_tile(p, k0);
-  const int n_qb = (p.sq + kBQ - 1) / kBQ;
-  for (int r = 0; r < rep; ++r) {
-    const int h = hk * rep + r;
-    const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
-    const float* dout =
-        static_cast<const float*>(p.dout) + b * p.o_sb + h * p.o_sh;
-    for (int qb = qb0; qb < n_qb; ++qb) {
-      const int q0 = qb * kBQ;
-      __syncthreads();  // the previous tile is done with q_s ... qseg_s
-      for (int i = tid; i < kBQ * D; i += kThreads) {
-        const int rr = i / D, e = i - rr * D;
-        const int qpos = q0 + rr;
-        const bool in = qpos < p.sq;
-        q_s[rr * DS + e] = in ? q[qpos * p.q_ss + e] : 0.f;
-        do_s[rr * DS + e] = in ? dout[qpos * p.o_ss + e] : 0.f;
-      }
-      if (tid < kBQ) {
-        const int qpos = q0 + tid;
-        const bool in = qpos < p.sq;
-        lse_s[tid] = in ? p.lse[row_index(p, b, qpos, h)] : 0.f;
-        delta_s[tid] = in ? p.delta[row_index(p, b, qpos, h)] : 0.f;
-        qseg_s[tid] = in && p.qseg != nullptr
-                          ? p.qseg[(size_t)b * p.sq + qpos] : 0;
-      }
-      __syncthreads();
+  for (int it = 0; it < n_items; ++it) {
+    const int st = L::STAGES == 2 ? it & 1 : 0;
+    const int q0 = (qb0 + it % nq) * kBQ;
+    cp_async_wait<0>();  // item it
+    __syncthreads();     // ... visible; every warp is done with item it - 1
+    if (L::STAGES == 2) {
+      if (it + 1 < n_items) load_item(it + 1, st ^ 1);
+      cp_async_commit();
+    }
+    const float* q_s = dkv_smem + L::q + st * kBQ * RS;
+    const float* do_s = dkv_smem + L::dout + st * kBQ * RS;
+    float lse[4], delta[4];
+    int qs[4];  // of this thread's q columns tx + 16 j
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int at = st * kBQ + tx + 16 * j;
+      lse[j] = dkv_smem[L::lse + at];
+      delta[j] = dkv_smem[L::delta + at];
+      qs[j] = p.qseg != nullptr
+                  ? reinterpret_cast<const int*>(dkv_smem + L::qseg)[at] : 0;
+    }
 
-      // S^T = K Q^T and dP^T = V dO^T: kv rows ty + 16a, q cols tx + 16c
+    const bool mask = p.kseg != nullptr || k0 + BK > p.sk ||
+                      q0 + kBQ > p.sq ||
+                      (p.causal && k0 + BK - 1 > q0 + offset);
+    if constexpr (L::PAIR) {
+      // half 0: S^T = K Q^T and P^T; half 1: dP^T = V dO^T and then dS^T
+      // from the P^T that half 0 wrote; each half then adds its head dims
+      // of dV += P^T dO and dK += dS^T Q
+      float* p_s = pd_s;
+      float* ds_s = pd_s + BK * L::PS;
+      float sc[A][4];
+      if (half == 0) {
+        dkv_f32_scores<D, A, TY>(sc, k_s, q_s, ty, tx);
+        if (mask)
+          dkv_f32_p<A, TY, true>(p, sc, lse, qs, ks, q0, k0, ty, tx);
+        else
+          dkv_f32_p<A, TY, false>(p, sc, lse, qs, ks, q0, k0, ty, tx);
+#pragma unroll
+        for (int i = 0; i < A; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            p_s[(ty + TY * i) * L::PS + tx + 16 * j] = sc[i][j];
+      } else {
+        dkv_f32_scores<D, A, TY>(sc, v_s, do_s, ty, tx);
+      }
+      __syncthreads();  // P^T is in
+      if (half == 1) {
+#pragma unroll
+        for (int i = 0; i < A; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int at = (ty + TY * i) * L::PS + tx + 16 * j;
+            ds_s[at] = p_s[at] * (sc[i][j] - delta[j]) * p.scale;
+          }
+      }
+      __syncthreads();  // dS^T is in
+      dkv_f32_acc<D, A, TY>(dv, p_s, do_s + half * (D / 2), ty, tx);
+      dkv_f32_acc<D, A, TY>(dk, ds_s, q_s + half * (D / 2), ty, tx);
+    } else {
+      // S^T = K Q^T and dP^T = V dO^T: kv rows ty + TY i, q columns tx + 16 j
       float s[A][4], dp[A][4];
-#pragma unroll
-      for (int a = 0; a < A; ++a)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) s[a][c] = dp[a][c] = 0.f;
-#pragma unroll 4
-      for (int e = 0; e < D; ++e) {
-        float ka[A], va[A], qc[4], oc[4];
-#pragma unroll
-        for (int a = 0; a < A; ++a) {
-          ka[a] = k_s[(ty + 16 * a) * DS + e];
-          va[a] = v_s[(ty + 16 * a) * DS + e];
-        }
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          qc[c] = q_s[(tx + 16 * c) * DS + e];
-          oc[c] = do_s[(tx + 16 * c) * DS + e];
-        }
-#pragma unroll
-        for (int a = 0; a < A; ++a)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            s[a][c] = fmaf(ka[a], qc[c], s[a][c]);
-            dp[a][c] = fmaf(va[a], oc[c], dp[a][c]);
-          }
-      }
+      dkv_f32_scores<D, A, TY>(s, k_s, q_s, ty, tx);
+      dkv_f32_scores<D, A, TY>(dp, v_s, do_s, ty, tx);
 
+      // P^T in s (masked only where the item needs it), into the rows'
+      // block of pd_s: a row's writers and readers are one warp
+      if (mask)
+        dkv_f32_p<A, TY, true>(p, s, lse, qs, ks, q0, k0, ty, tx);
+      else
+        dkv_f32_p<A, TY, false>(p, s, lse, qs, ks, q0, k0, ty, tx);
 #pragma unroll
-      for (int a = 0; a < A; ++a) {
-        const int kpos = k0 + ty + 16 * a;
+      for (int i = 0; i < A; ++i)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int j = tx + 16 * c;
-          const float pr = live(p, q0 + j, kpos, qseg_s[j], ks[a])
-                               ? expf(s[a][c] * p.scale - lse_s[j]) : 0.f;
-          p_s[(ty + 16 * a) * PS + j] = pr;
-          ds_s[(ty + 16 * a) * PS + j] = pr * (dp[a][c] - delta_s[j]) * p.scale;
-        }
-      }
-      __syncthreads();
+        for (int j = 0; j < 4; ++j)
+          pd_s[(ty + TY * i) * L::PS + tx + 16 * j] = s[i][j];
+      __syncwarp();
+      dkv_f32_acc<D, A, TY>(dv, pd_s, do_s, ty, tx);  // dV += P^T dO
+      __syncwarp();  // every lane has read P^T: dS^T takes its place
+#pragma unroll
+      for (int i = 0; i < A; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          pd_s[(ty + TY * i) * L::PS + tx + 16 * j] =
+              s[i][j] * (dp[i][j] - delta[j]) * p.scale;
+      __syncwarp();
+      dkv_f32_acc<D, A, TY>(dk, pd_s, q_s, ty, tx);  // dK += dS^T Q
+    }
 
-      // dV += P^T dO and dK += dS^T Q: rows ty + 16a, cols tx + 16c
-#pragma unroll 4
-      for (int j = 0; j < kBQ; ++j) {
-        float pa[A], da[A];
-#pragma unroll
-        for (int a = 0; a < A; ++a) {
-          pa[a] = p_s[(ty + 16 * a) * PS + j];
-          da[a] = ds_s[(ty + 16 * a) * PS + j];
-        }
-#pragma unroll
-        for (int c = 0; c < DC; ++c) {
-          const float ov = do_s[j * DS + tx + 16 * c];
-          const float qv = q_s[j * DS + tx + 16 * c];
-#pragma unroll
-          for (int a = 0; a < A; ++a) {
-            dv[a][c] = fmaf(pa[a], ov, dv[a][c]);
-            dk[a][c] = fmaf(da[a], qv, dk[a][c]);
-          }
-        }
-      }
+    if (L::STAGES == 1) {
+      __syncthreads();  // every warp is done with the stage: refill it
+      if (it + 1 < n_items) load_item(it + 1, 0);
+      cp_async_commit();
     }
   }
+  cp_async_wait<0>();  // no copy outlives the block (no item: K's and V's)
 
   float* dk_out = static_cast<float*>(p.dk);
   float* dv_out = static_cast<float*>(p.dv);
 #pragma unroll
-  for (int a = 0; a < A; ++a) {
-    const int kpos = k0 + ty + 16 * a;
+  for (int i = 0; i < A; ++i) {
+    const int kpos = k0 + ty + TY * i;
     if (kpos >= p.sk) continue;
-    const size_t row = (((size_t)b * p.sk + kpos) * p.hkv + hk) * D;
+    const size_t row = (((size_t)b * p.sk + kpos) * p.hkv + hk) * D +
+                       half * (D / 2) + VW * tx;
 #pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      dk_out[row + tx + 16 * c] = dk[a][c];
-      dv_out[row + tx + 16 * c] = dv[a][c];
-    }
+    for (int n = 0; n < NV; ++n)
+#pragma unroll
+      for (int w = 0; w < VW; ++w) {
+        dk_out[row + 16 * VW * n + w] = dk[i][n * VW + w];
+        dv_out[row + 16 * VW * n + w] = dv[i][n * VW + w];
+      }
   }
 }
 
@@ -1265,15 +1397,6 @@ int launch_dkv_wgmma(const BwdParams& p, int B, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <typename Kernel>
-int launch(Kernel kernel, dim3 grid, int threads, size_t smem,
-           const BwdParams& p, cudaStream_t stream) {
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  kernel<<<grid, threads, smem, stream>>>(p);
-  return (int)cudaGetLastError();
-}
-
 template <int D>
 int dq(int dtype, const BwdParams& p, int B, cudaStream_t s) {
   if (dtype == DTYPE_BF16) return launch_dq_wgmma<D>(p, B, s);
@@ -1289,9 +1412,13 @@ int dq(int dtype, const BwdParams& p, int B, cudaStream_t s) {
 template <int D>
 int dkv(int dtype, const BwdParams& p, int B, cudaStream_t s) {
   if (dtype == DTYPE_BF16) return launch_dkv_wgmma<D>(p, B, s);
-  constexpr int bk = f32_rows<D>();
-  const dim3 grid((p.sk + bk - 1) / bk, p.hkv, B);
-  return launch(bwd_dkv_f32<D>, grid, kThreads, dkv_f32_smem<D>(), p, s);
+  using L = DkvF32<D>;
+  cudaFuncSetAttribute(bwd_dkv_f32<D>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)L::bytes);
+  const int blocks = (p.sk + L::BK - 1) / L::BK * p.hkv * B;
+  bwd_dkv_f32<D><<<blocks, L::NT, L::bytes, s>>>(p, B);
+  return (int)cudaGetLastError();
 }
 
 BwdParams make_params(const void* q, const void* k, const void* v,

@@ -29,9 +29,11 @@
 //     (flash_fwd_wgmma) at every head dim, except at D 256 past 64 q
 //     rows: there two warpgroups share each K/V tile of a 128-row q tile
 //     and take turns at the tensor cores (flash_fwd_wgmma_pair);
-//   - float32 (the exact reference path of the tests) keeps scalar FMAs
-//     on float32 tiles: one block per (64-row q tile, q head, batch row)
-//     of 256 threads, each owning a 4x4 patch of the score tile.
+//   - float32 (the exact reference path of the tests) keeps exact scalar
+//     FMAs, on register tiles read as 16-byte shared loads with K and V
+//     copied in flight by cp.async (flash_fwd_f32, K3's float32 design):
+//     one block per (64-row q tile, q head, batch row) of 256 threads,
+//     each owning 4 rows of the score tile.
 // All loop over 64-row kv tiles, and the causal bound ends the loop
 // early. Head dims 16, 32, 64, 96, 128 and 256, each its own instance of
 // both variants (the bf16 tiles' layout for each is hopper.cuh's).
@@ -39,160 +41,280 @@
 // one-warpgroup block leaves room for a second block on the SM), a TMA
 // producer warp with setmaxnreg, and overlapping one tile's softmax with
 // the same warpgroup's next S product; a TMA store of o; reading ctx pages
-// through the block table instead of a gathered copy; the float32 64-row
-// variant's register tiles (K3's float32 design); in the split-KV design,
-// tensor-core products (mma.sync, as K1's) and the chunk's kv rows spread
-// over the warps where a block has fewer rows than warps.
+// through the block table instead of a gathered copy; in the split-KV
+// design, tensor-core products (mma.sync, as K1's) and the chunk's kv rows
+// spread over the warps where a block has fewer rows than warps.
 #include "hopper.cuh"
 
 namespace {
 
 constexpr int kBQ = 64;       // q rows per block
 constexpr int kBK = 64;       // kv rows per iteration
-constexpr int kThreads = 256;  // 16 x 16 thread grid
+constexpr int kThreads = 256;  // float32 variant: a 16 x 16 thread grid
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, const int* __restrict__ qseg,
-                 const int* __restrict__ kseg, int sq, int sk, int hq,
-                 int hkv, long long q_sb, long long q_ss, long long q_sh,
-                 long long k_sb, long long k_ss, long long k_sh,
-                 long long v_sb, long long v_ss, long long v_sh,
-                 long long o_sb, long long o_ss, long long o_sh, int causal,
-                 float scale) {
-  constexpr int DS = D + 1;    // padded smem row stride (floats)
-  constexpr int PS = kBK + 1;  // padded probability row stride
-  constexpr int DC = D / 16;   // output columns per thread
+// ---------------------------------------------------------------------
+// float32 variant (the exact reference path): scalar FMAs on float32
+// register tiles, K3's float32 design (flash_bwd.cu, bwd_dq_f32) with dP
+// gone and dS replaced by the online softmax's P. It is bound by how fast
+// it feeds its FMAs: per live pair 2 D FMAs on operands in shared memory.
+// One block of 256 threads, a 16 x 16 grid (ty, tx), per (64-row q tile,
+// q head, batch row), heaviest q tiles first:
+//   - S = Q K^T: thread (ty, tx) owns rows ty + 16 i and kv columns
+//     tx + 16 j (i, j < 4) and walks the head dim 4 columns at a time,
+//     reading a row's 4 values of q and k as one float4 each (rows padded
+//     by 4 floats: the 8 k rows a quarter-warp reads fall in distinct
+//     banks, its q row is one broadcast): 8 loads for 64 FMAs;
+//   - the online softmax on those registers, a row's 16 owners one
+//     half-warp; P goes to the rows' block of shared memory, which only
+//     the same warp reads back;
+//   - O += P V: rows ty + 16 i and head dims VW tx + 16 VW n + w (float4,
+//     float2 or scalar pieces of a v row), reading 4 P columns of a row
+//     as one float4: at D 64, 8 loads for 64 FMAs;
+//   - copies in flight: Q once, K and V by 16-byte cp.async (4-byte for a
+//     view off 16-byte alignment). In two stages tile kb + 1 is copied
+//     during tile kb (one block barrier a tile); in one (D 96 and 256) K
+//     kb + 1 is copied as soon as S is done (during the softmax and PV),
+//     V kb + 1 at the next tile's start (during its S);
+//   - shared memory: 104,960 bytes at D 64, 94,464 at D 96 and less
+//     below, so two blocks share an SM there (__launch_bounds__ then holds
+//     a thread to 128 registers: a few bytes spill at D 32, 64 and 96,
+//     chip_smoke.py's F32_SPILLS); 186,880 at D 128 and 217,344 at D 256,
+//     one block;
+//   - masks only on a tile that crosses the causal limit or the sk edge,
+//     or that carries segment ids (a template per case, chosen per tile;
+//     see online_softmax below for what ptxas does with one loop
+//     predicated on a flag).
+template <int D>
+struct FwdF32 {
+  static constexpr int NT = kThreads, TY = NT / 16;
+  static constexpr int A = kBQ / TY;           // rows of a thread
+  static constexpr int RS = D + 4;             // padded row stride
+  static constexpr int PS = kBK + 4;           // P row stride
+  // of the K/V tiles: one at D 256, where two do not fit, and at D 96,
+  // where one lets two blocks share an SM (faster on the card than two
+  // stages in one block: chip_variants.py)
+  static constexpr int STAGES = D == 96 || D > 128 ? 1 : 2;
+  static constexpr int DC = D / 16;            // O head dims of a thread
+  static constexpr int VW = piece_width(DC);   // a v row's piece
+  static constexpr int q = 0;                  // [kBQ][RS]
+  static constexpr int k = q + kBQ * RS;       // [STAGES][kBK][RS]
+  static constexpr int v = k + STAGES * kBK * RS;   // [STAGES][kBK][RS]
+  static constexpr int p = v + STAGES * kBK * RS;   // [kBQ][PS]
+  static constexpr int kseg = p + kBQ * PS;    // [STAGES][kBK] int
+  static constexpr size_t bytes = 4 * (size_t)(kseg + STAGES * kBK);
+  static constexpr int min_blocks = 2 * bytes + 2048 <= 233472 ? 2 : 1;
+};
+static_assert(FwdF32<256>::bytes <= 232448, "K2 f32 shared memory");
 
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+// The online softmax of one kv tile on this thread's A x 4 scores (rows
+// ty + TY i, kv columns tx + 16 j, segment ids ks of those columns):
+// scale, mask where kMask, update m and l, rescale acc, and write P to
+// the rows' block of p_s. A masked score's p is 0, never an exp.
+template <int D, bool kMask>
+__device__ __forceinline__ void online_softmax_f32(
+    float (*s)[4], float (*acc)[D / 16], float* m, float* l, const int* qs,
+    const int* ks, float* p_s, int q0, int k0, int sk, int causal,
+    int offset, bool segs, float scale, int ty, int tx) {
+  using L = FwdF32<D>;
+#pragma unroll
+  for (int i = 0; i < L::A; ++i) {
+    const int qpos = q0 + ty + L::TY * i;
+    bool ok[4];
+    float mx = NEG_INF_F;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      bool keep = true;
+      if (kMask) {
+        const int kpos = k0 + tx + 16 * j;
+        keep = kpos < sk;
+        if (causal) keep = keep && kpos <= qpos + offset;
+        if (segs) keep = keep && ks[j] == qs[i];
+      }
+      ok[j] = keep;
+      s[i][j] = keep ? s[i][j] * scale : NEG_INF_F;
+      mx = fmaxf(mx, s[i][j]);
+    }
+    mx = group_max<16>(mx);
+    const float m_new = fmaxf(m[i], mx);
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float pr = ok[j] ? expf(s[i][j] - m_new) : 0.f;
+      p_s[(ty + L::TY * i) * L::PS + tx + 16 * j] = pr;
+      sum += pr;
+    }
+    sum = group_sum<16>(sum);
+    const float alpha = expf(m[i] - m_new);
+    l[i] = l[i] * alpha + sum;
+    m[i] = m_new;
+#pragma unroll
+    for (int c = 0; c < L::DC; ++c) acc[i][c] *= alpha;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(FwdF32<D>::NT, FwdF32<D>::min_blocks)
+flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, float* __restrict__ o,
+              float* __restrict__ lse, const int* __restrict__ qseg,
+              const int* __restrict__ kseg, int B, int sq, int sk, int hq,
+              int hkv, long long q_sb, long long q_ss, long long q_sh,
+              long long k_sb, long long k_ss, long long k_sh, long long v_sb,
+              long long v_ss, long long v_sh, long long o_sb, long long o_ss,
+              long long o_sh, int causal, float scale, int vec16) {
+  using L = FwdF32<D>;
+  constexpr int A = L::A, TY = L::TY, RS = L::RS, PS = L::PS, NT = L::NT;
+  constexpr int DC = L::DC, VW = L::VW, NV = DC / VW;
+  const int n_qt = (sq + kBQ - 1) / kBQ;
+  // heaviest first: under causal masking the last q tiles see most kv
+  const int qt = n_qt - 1 - (int)(blockIdx.x / (hq * B));
+  const int rest = blockIdx.x % (hq * B);
+  const int h = rest % hq, b = rest / hq;
   const int hk = h / (hq / hkv);
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int q0 = qt * kBQ;
-  const int offset = sk - sq;
+  const int q0 = qt * kBQ, offset = sk - sq;
 
-  extern __shared__ float smem[];
-  float* q_s = smem;               // [kBQ][DS]
-  float* k_s = q_s + kBQ * DS;     // [kBK][DS]
-  float* v_s = k_s + kBK * DS;     // [kBK][DS]
-  float* p_s = v_s + kBK * DS;     // [kBQ][PS]
-
-  const T* q_base = q + b * q_sb + h * q_sh;
-  const T* k_base = k + b * k_sb + hk * k_sh;
-  const T* v_base = v + b * v_sb + hk * v_sh;
-
-  for (int i = tid; i < kBQ * D; i += kThreads) {
-    const int r = i / D, e = i - r * D;
-    const int qpos = q0 + r;
-    q_s[r * DS + e] = qpos < sq ? to_f32(q_base[qpos * q_ss + e]) : 0.f;
-  }
-
-  float m[4], l[4], acc[4][DC];
-  int qs[4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    m[a] = NEG_INF_F;
-    l[a] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[a][c] = 0.f;
-    const int qpos = min(q0 + ty + 16 * a, sq - 1);
-    qs[a] = qseg != nullptr ? qseg[(size_t)b * sq + qpos] : 0;
-  }
+  extern __shared__ __align__(16) float fwd_smem[];
+  float* q_s = fwd_smem + L::q;
+  float* p_s = fwd_smem + L::p;
+  int* kseg_s = reinterpret_cast<int*>(fwd_smem + L::kseg);
+  const float* q_base = q + b * q_sb + h * q_sh;
+  const float* k_base = k + b * k_sb + hk * k_sh;
+  const float* v_base = v + b * v_sb + hk * v_sh;
+  auto load_k = [&](int kb, int st) {  // K tile kb and its kv segment ids
+    stage_rows<D, RS, NT>(fwd_smem + L::k + st * kBK * RS, k_base, k_ss,
+                          kb * kBK, kBK, sk, vec16);
+    if (kseg != nullptr && tid < kBK) {
+      const int kpos = kb * kBK + tid;
+      kseg_s[st * kBK + tid] = kpos < sk ? kseg[(size_t)b * sk + kpos] : 0;
+    }
+  };
+  auto load_v = [&](int kb, int st) {
+    stage_rows<D, RS, NT>(fwd_smem + L::v + st * kBK * RS, v_base, v_ss,
+                          kb * kBK, kBK, sk, vec16);
+  };
 
   int n_kb = (sk + kBK - 1) / kBK;
   if (causal) n_kb = min(n_kb, (q0 + kBQ + offset + kBK - 1) / kBK);
+  // the first commit group: Q, K 0 and V 0. Then, with two stages, tile
+  // kb + 1 at the start of tile kb; with one, V kb at the start of tile kb
+  // (kb > 0) and K kb + 1 after its S
+  stage_rows<D, RS, NT>(q_s, q_base, q_ss, q0, kBQ, sq, vec16);
+  if (n_kb > 0) {
+    load_k(0, 0);
+    load_v(0, 0);
+  }
+  cp_async_commit();
+
+  float m[A], l[A], acc[A][DC];
+  int qs[A];
+#pragma unroll
+  for (int i = 0; i < A; ++i) {
+    m[i] = NEG_INF_F;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
+    const int qpos = min(q0 + ty + TY * i, sq - 1);
+    qs[i] = qseg != nullptr ? qseg[(size_t)b * sq + qpos] : 0;
+  }
 
   for (int kb = 0; kb < n_kb; ++kb) {
-    const int k0 = kb * kBK;
-    __syncthreads();  // the previous iteration is done with k_s, v_s, p_s
-    for (int i = tid; i < kBK * D; i += kThreads) {
-      const int r = i / D, e = i - r * D;
-      const int kpos = k0 + r;
-      const bool in = kpos < sk;
-      k_s[r * DS + e] = in ? to_f32(k_base[kpos * k_ss + e]) : 0.f;
-      v_s[r * DS + e] = in ? to_f32(v_base[kpos * v_ss + e]) : 0.f;
-    }
-    __syncthreads();
-
-    // S = Q K^T for rows ty + 16a, cols tx + 16c
-    float s[4][4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[a][c] = 0.f;
-#pragma unroll 8
-    for (int e = 0; e < D; ++e) {
-      float qa[4], kc[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) qa[a] = q_s[(ty + 16 * a) * DS + e];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) kc[c] = k_s[(tx + 16 * c) * DS + e];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) s[a][c] = fmaf(qa[a], kc[c], s[a][c]);
-    }
-
-    // masks, online softmax; a row's 16 owners are one half-warp
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int qpos = q0 + ty + 16 * a;
-      bool ok[4];
-      float mx = NEG_INF_F;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int kpos = k0 + tx + 16 * c;
-        bool keep = kpos < sk;
-        if (causal) keep = keep && kpos <= qpos + offset;
-        if (kseg != nullptr && keep) keep = kseg[(size_t)b * sk + kpos] == qs[a];
-        ok[c] = keep;
-        s[a][c] = keep ? s[a][c] * scale : NEG_INF_F;
-        mx = fmaxf(mx, s[a][c]);
+    const int st = L::STAGES == 2 ? kb & 1 : 0, k0 = kb * kBK;
+    const float* k_s = fwd_smem + L::k + st * kBK * RS;
+    const float* v_s = fwd_smem + L::v + st * kBK * RS;
+    cp_async_wait<0>();  // K kb (and, with two stages, V kb)
+    __syncthreads();     // ... visible; every warp is done with tile kb - 1
+    if (L::STAGES == 2) {
+      if (kb + 1 < n_kb) {
+        load_k(kb + 1, st ^ 1);
+        load_v(kb + 1, st ^ 1);
       }
-      mx = group_max<16>(mx);
-      const float m_new = fmaxf(m[a], mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float p = ok[c] ? expf(s[a][c] - m_new) : 0.f;
-        p_s[(ty + 16 * a) * PS + tx + 16 * c] = p;
-        sum += p;
-      }
-      sum = group_sum<16>(sum);
-      const float alpha = expf(m[a] - m_new);
-      l[a] = l[a] * alpha + sum;
-      m[a] = m_new;
-#pragma unroll
-      for (int c = 0; c < DC; ++c) acc[a][c] *= alpha;
+    } else if (kb > 0) {
+      load_v(kb, 0);
     }
-    __syncthreads();
+    cp_async_commit();
+    int ks[4];  // the kv segment ids of this thread's columns
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      ks[j] = kseg != nullptr ? kseg_s[st * kBK + tx + 16 * j] : 0;
 
-    // acc += P V for rows ty + 16a, cols tx + 16c
-#pragma unroll 4
-    for (int j = 0; j < kBK; ++j) {
-      float pa[4];
+    // S = Q K^T: rows ty + TY i, columns tx + 16 j
+    float s[A][4];
 #pragma unroll
-      for (int a = 0; a < 4; ++a) pa[a] = p_s[(ty + 16 * a) * PS + j];
+    for (int i = 0; i < A; ++i)
 #pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        const float vv = v_s[j * DS + tx + 16 * c];
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 2
+    for (int e = 0; e < D; e += 4) {
+      float4 kf[4];
 #pragma unroll
-        for (int a = 0; a < 4; ++a) acc[a][c] = fmaf(pa[a], vv, acc[a][c]);
+      for (int j = 0; j < 4; ++j) kf[j] = lds4(k_s + (tx + 16 * j) * RS + e);
+#pragma unroll
+      for (int i = 0; i < A; ++i) {
+        const float4 qf = lds4(q_s + (ty + TY * i) * RS + e);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = dot4(qf, kf[j], s[i][j]);
+      }
+    }
+    if (L::STAGES == 1) {
+      __syncthreads();  // every warp is done with K kb: refill it
+      if (kb + 1 < n_kb) load_k(kb + 1, 0);
+      cp_async_commit();
+    }
+
+    // P into shared memory; a row's writers and readers are one warp
+    const bool segs = kseg != nullptr;
+    if (segs || k0 + kBK > sk || (causal && k0 + kBK - 1 > q0 + offset))
+      online_softmax_f32<D, true>(s, acc, m, l, qs, ks, p_s, q0, k0, sk,
+                                  causal, offset, segs, scale, ty, tx);
+    else
+      online_softmax_f32<D, false>(s, acc, m, l, qs, ks, p_s, q0, k0, sk,
+                                   causal, offset, segs, scale, ty, tx);
+    if (L::STAGES == 1) {
+      cp_async_wait<1>();  // V kb (K kb + 1 may still be in flight)
+      __syncthreads();     // ... visible to every thread
+    } else {
+      __syncwarp();
+    }
+
+    // O += P V: rows ty + TY i, head dims VW tx + 16 VW n + w
+#pragma unroll 2
+    for (int c = 0; c < kBK; c += 4) {
+      float4 p4[A];
+#pragma unroll
+      for (int i = 0; i < A; ++i) p4[i] = lds4(p_s + (ty + TY * i) * PS + c);
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) {
+        const float* v_row = v_s + (c + cc) * RS + VW * tx;
+#pragma unroll
+        for (int n = 0; n < NV; ++n) {
+          float vv[VW];
+          lds_piece<VW>(v_row + 16 * VW * n, vv);
+#pragma unroll
+          for (int i = 0; i < A; ++i) {
+            const float pv = (&p4[i].x)[cc];
+#pragma unroll
+            for (int w = 0; w < VW; ++w)
+              acc[i][n * VW + w] = fmaf(pv, vv[w], acc[i][n * VW + w]);
+          }
+        }
       }
     }
   }
+  cp_async_wait<0>();  // no copy outlives the block (n_kb = 0: Q's)
 
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int qpos = q0 + ty + 16 * a;
+  for (int i = 0; i < A; ++i) {
+    const int qpos = q0 + ty + TY * i;
     if (qpos >= sq) continue;
-    const float l_safe = l[a] == 0.f ? 1.f : l[a];
-    T* o_row = o + b * o_sb + qpos * o_ss + h * o_sh;
+    const float l_safe = l[i] == 0.f ? 1.f : l[i];
+    float* o_row = o + b * o_sb + qpos * o_ss + h * o_sh + VW * tx;
 #pragma unroll
-    for (int c = 0; c < DC; ++c)
-      o_row[tx + 16 * c] = from_f32<T>(acc[a][c] / l_safe);
-    if (tx == 0) lse[((size_t)b * sq + qpos) * hq + h] = m[a] + logf(l_safe);
+    for (int n = 0; n < NV; ++n)
+#pragma unroll
+      for (int w = 0; w < VW; ++w)
+        o_row[16 * VW * n + w] = acc[i][n * VW + w] / l_safe;
+    if (tx == 0) lse[((size_t)b * sq + qpos) * hq + h] = m[i] + logf(l_safe);
   }
 }
 
@@ -1069,23 +1191,26 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, void* lse,
-           const void* qseg, const void* kseg, int B, int sq, int sk, int hq,
-           int hkv, const long long* st, int causal, float scale,
-           cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * ((size_t)(kBQ + 2 * kBK) * (D + 1) + kBQ * (kBK + 1));
-  cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
+template <int D>
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               void* lse, const void* qseg, const void* kseg, int B, int sq,
+               int sk, int hq, int hkv, const long long* st, int causal,
+               float scale, cudaStream_t stream) {
+  using L = FwdF32<D>;
+  cudaFuncSetAttribute(flash_fwd_f32<D>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  dim3 grid((sq + kBQ - 1) / kBQ, hq, B);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      static_cast<const int*>(qseg), static_cast<const int*>(kseg), sq, sk,
-      hq, hkv, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-      st[9], st[10], st[11], causal, scale);
+                       (int)L::bytes);
+  const bool vec16 = rows_16b(q, 4, st[0], st[1], st[2]) &&
+                     rows_16b(k, 4, st[3], st[4], st[5]) &&
+                     rows_16b(v, 4, st[6], st[7], st[8]);
+  const int blocks = (sq + kBQ - 1) / kBQ * hq * B;
+  flash_fwd_f32<D><<<blocks, L::NT, L::bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o),
+      static_cast<float*>(lse), static_cast<const int*>(qseg),
+      static_cast<const int*>(kseg), B, sq, sk, hq, hkv, st[0], st[1], st[2],
+      st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], causal,
+      scale, (int)vec16);
   return (int)cudaGetLastError();
 }
 
@@ -1105,9 +1230,9 @@ extern "C" int flash_fwd(int dtype, const void* q, const void* k,
 #define WGMMA(D)                                                          \
   launch_wgmma<D>(q, k, v, o, lse, qseg, kseg, B, sq, sk, hq, hkv, strides, \
                   causal, scale, s)
-#define SCALAR(D)                                                         \
-  launch<float, D>(q, k, v, o, lse, qseg, kseg, B, sq, sk, hq, hkv, strides, \
-                   causal, scale, s)
+#define F32(D)                                                           \
+  launch_f32<D>(q, k, v, o, lse, qseg, kseg, B, sq, sk, hq, hkv, strides, \
+                causal, scale, s)
   if (dtype == DTYPE_BF16) {
     switch (d) {
       HEAD_DIM_CASES(WGMMA)
@@ -1116,12 +1241,12 @@ extern "C" int flash_fwd(int dtype, const void* q, const void* k,
   }
   if (dtype == DTYPE_F32) {
     switch (d) {
-      HEAD_DIM_CASES(SCALAR)
+      HEAD_DIM_CASES(F32)
       default: return (int)cudaErrorInvalidValue;
     }
   }
 #undef WGMMA
-#undef SCALAR
+#undef F32
   return (int)cudaErrorInvalidValue;
 }
 

@@ -203,10 +203,11 @@ def test_unported_engine_options_are_refused(option):
 
 
 def test_package_imports_no_jax_and_nothing_of_ray_tpu():
-    """No file of ray_tpu_torch, nor chip_smoke.py, imports jax, flax,
-    optax, gymnasium or ray_tpu (relative imports stay inside
-    ray_tpu_torch); the card's machine has none of them."""
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    """No file of ray_tpu_torch, nor chip_smoke.py or chip_variants.py,
+    imports jax, flax, optax, gymnasium or ray_tpu (relative imports stay
+    inside ray_tpu_torch); the card's machine has none of them."""
+    files = [os.path.join(REPO, n) for n in ("chip_smoke.py",
+                                             "chip_variants.py")]
     for root, _, names in os.walk(os.path.join(REPO, "ray_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 10

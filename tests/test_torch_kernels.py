@@ -138,31 +138,59 @@ def test_chip_smoke_watchdog_ends_a_hung_phase():
     assert "phase hang (deadline 1 s)" in proc.stdout
 
 
-@pytest.mark.parametrize("spills,ok", [((0, 0), True), ((440, 808), False),
-                                       (None, False)])
-def test_chip_smoke_spill_check_reads_ptxas_reports(spills, ok):
+@pytest.mark.parametrize("spilled,spills,ok", [
+    (None, None, True),
+    (("flash_fwd_wgmma_pair", 256), (440, 808), False),
+    (("flash_fwd_f32", 128), (16, 16), False),
+    (("bwd_dkv_f32", 96), (8, 8), False),
+    (("flash_fwd_f32", 64), (24, 64), True),   # F32_SPILLS, within bounds
+    (("bwd_dkv_f32", 64), (128, 256), False),   # F32_SPILLS, past them
+    (("bwd_dkv_f32", 32), None, False),         # no report of it
+    (("flash_fwd_wgmma_pair", 256), None, False),
+])
+def test_chip_smoke_spill_check_reads_ptxas_reports(spilled, spills, ok):
     """chip_smoke.py's build phase holds the two-warpgroup D-256 entries
-    to no spill, from the -Xptxas -v report; a report that lacks one of
-    them fails too. No card needed."""
+    and the float32 K2 and K4 at every head dim to no spill, but for
+    F32_SPILLS' instances (a few bytes), from the -Xptxas -v report; a
+    report that lacks one of them fails too. No card needed."""
     import chip_smoke
 
-    def entry(name, stores, loads):
+    def entry(name, d, stores, loads):
         return (f"ptxas info    : Compiling entry function '_ZN4_GLOBAL__N_1"
-                f"{len(name)}{name}ILi256EEEv14CUtensorMap_st' for "
+                f"{len(name)}{name}ILi{d}EEEv14CUtensorMap_st' for "
                 f"'sm_90a'\nptxas info    : Function properties for x\n"
                 f"    0 bytes stack frame, {stores} bytes spill stores, "
                 f"{loads} bytes spill loads\nptxas info    : Used 231 "
                 f"registers, used 3 barriers\n")
 
-    reports = {"flash_bwd": entry("bwd_dkv_wgmma_pair", 0, 0)
-               + entry("bwd_dkv_wgmma", 8, 16)}  # others may spill
-    if spills is not None:
-        reports["flash_fwd"] = entry("flash_fwd_wgmma_pair", *spills)
+    dims = t_flash.KERNEL_HEAD_DIMS
+    held = [(n, 256) for n in ("bwd_dkv_wgmma_pair", "flash_fwd_wgmma_pair")]
+    held += [(n, d) for n in ("flash_fwd_f32", "bwd_dkv_f32") for d in dims]
+    reports = {"flash_bwd": entry("bwd_dkv_wgmma", 256, 8, 16)}  # may spill
+    for name, d in held:
+        if (name, d) == spilled:
+            if spills is not None:
+                reports["flash_bwd"] += entry(name, d, *spills)
+        else:
+            reports["flash_bwd"] += entry(name, d, 0, 0)
     if ok:
         chip_smoke.check_no_spill(reports)
     else:
         with pytest.raises(AssertionError):
             chip_smoke.check_no_spill(reports)
+
+
+def test_chip_variants_apply_to_the_sources():
+    """Every variant of chip_variants.py changes text that the kernel
+    sources hold (no card needed)."""
+    import chip_variants
+
+    for name, (kernel, src, subs, dims) in chip_variants.VARIANTS.items():
+        with open(os.path.join(chip_variants.CSRC, src)) as f:
+            text = f.read()
+        assert kernel in chip_variants.ENTRIES and dims
+        for old, new in subs:
+            assert old in text and old != new, (name, old)
 
 
 @pytest.mark.parametrize("shape,want", [
@@ -424,21 +452,18 @@ def test_flash_decode_threshold_on_card(dtype, d):
         _close(lse, lse_p, rtol=0, atol=1e-3, err_msg=f"sq {sq}")
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("d", [16, 32, 64, 96, 128, 256])
-@pytest.mark.parametrize("case", ["causal", "segments", "unaligned"])
-def test_flash_bwd_dq_f32_at_tile_edges_matches_plain_on_card(d, case):
-    """K3's float32 design at a q length off its q tile (64 rows, 32 at
-    D 256) and a kv length off its 64-row kv tile (97 queries over 161
-    keys, GQA 8/2, v a strided view): causal; packed segments crossing
-    both tiles' edges with a q row that matches no kv row (dq = 0 there);
-    and causal with every operand one float off 16-byte alignment (its
-    4-byte copies)."""
-    _need_card()
-    rng = np.random.default_rng(18)
-    sq, sk, hq, hkv = 97, 161, 8, 2
-    aligned = case != "unaligned"
-    segs = None
+def _f32_edge_inputs(rng, d, case):
+    """float32 q, k, v, do on the card and the keyword arguments of a
+    tile-edge case: 97 queries over 161 keys (off the 64-row tiles and D
+    256's 32-row ones), k and v strided views of one fused tensor, GQA 8/2
+    unless the case says otherwise. "causal"; "segments": causal, packed
+    segments crossing the tiles' edges, q row 5 of row 1 matching no kv
+    row; "unaligned": causal, every operand one float off 16-byte
+    alignment (the 4-byte copies); "rep1": causal at 2/2 heads; "rep8":
+    not causal, at 16/2 heads."""
+    sq, sk = 97, 161
+    hq, hkv = {"rep1": (2, 2), "rep8": (16, 2)}.get(case, (8, 2))
+    segs = (None, None)
     if case == "segments":
         kv_seg = np.stack([np.repeat([0, 1, 2, 3], [20, 50, 60, 31]),
                            np.repeat([0, 1, 2], [50, 50, 61])]).astype(
@@ -447,14 +472,61 @@ def test_flash_bwd_dq_f32_at_tile_edges_matches_plain_on_card(d, case):
         q_seg[1, 5] = 9
         segs = (torch.from_numpy(q_seg).cuda(),
                 torch.from_numpy(kv_seg).cuda())
-    pad = 0 if aligned else 1
+    pad = 1 if case == "unaligned" else 0
     q, do = (torch.from_numpy(rng.standard_normal((2, sq, hq, d + pad))
                               .astype(np.float32)).cuda()[..., pad:]
              for _ in range(2))
-    k, v = _fused_kv(rng, 2, sk, hkv, d, torch.float32, aligned)
-    kw = dict(causal=True, q_seg=None if segs is None else segs[0],
-              kv_seg=None if segs is None else segs[1], scale=d ** -0.5)
-    o, lse = t_flash.flash_attention(q, k, v, causal=True, segment_ids=segs,
+    k, v = _fused_kv(rng, 2, sk, hkv, d, torch.float32, not pad)
+    kw = dict(causal=case != "rep8", q_seg=segs[0], kv_seg=segs[1],
+              scale=d ** -0.5)
+    return q, k, v, do, kw
+
+
+def _segment_ids(kw):
+    return None if kw["q_seg"] is None else (kw["q_seg"], kw["kv_seg"])
+
+
+F32_EDGE_CASES = ["causal", "segments", "unaligned", "rep1", "rep8"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [16, 32, 64, 96, 128, 256])
+@pytest.mark.parametrize("case", F32_EDGE_CASES)
+def test_flash_fwd_f32_at_tile_edges_matches_plain_on_card(d, case):
+    """K2's float32 64-row design (forced below the split-KV threshold by
+    max_sq=0) at a q length and a kv length off its tiles
+    (_f32_edge_inputs' cases); a q row that matches no kv row gives o = 0
+    and lse = -1e30."""
+    _need_card()
+    rng = np.random.default_rng(19)
+    q, k, v, _, kw = _f32_edge_inputs(rng, d, case)
+    before = (t_flash.flash_attention.launches,
+              t_flash.flash_attention.decode_launches)
+    o, lse = t_flash._launch(q, k, v, max_sq=0, **kw)
+    o_p, lse_p = t_flash.flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert (t_flash.flash_attention.launches,
+            t_flash.flash_attention.decode_launches) == (before[0] + 1,
+                                                         before[1])
+    _close(o, o_p, **F32)
+    _close(lse, lse_p, rtol=0, atol=1e-3)
+    if case == "segments":
+        assert (o[1, 5] == 0).all() and (lse[1, 5] == -1e30).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [16, 32, 64, 96, 128, 256])
+@pytest.mark.parametrize("case", ["causal", "segments", "unaligned"])
+def test_flash_bwd_dq_f32_at_tile_edges_matches_plain_on_card(d, case):
+    """K3's float32 design at a q length off its q tile (64 rows, 32 at
+    D 256) and a kv length off its 64-row kv tile (_f32_edge_inputs:
+    causal; packed segments with a q row that matches no kv row, dq = 0
+    there; every operand one float off 16-byte alignment)."""
+    _need_card()
+    rng = np.random.default_rng(18)
+    q, k, v, do, kw = _f32_edge_inputs(rng, d, case)
+    o, lse = t_flash.flash_attention(q, k, v, causal=True,
+                                     segment_ids=_segment_ids(kw),
                                      return_lse=True)
     delta = t_flash.attention_delta(o, do)
     before = t_flash.flash_attention.dq_launches
@@ -466,6 +538,31 @@ def test_flash_bwd_dq_f32_at_tile_edges_matches_plain_on_card(d, case):
     _close(dq, want, **F32_BWD)
     if case == "segments":
         assert (lse[1, 5] == -1e30).all() and (dq[1, 5] == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [16, 32, 64, 96, 128, 256])
+@pytest.mark.parametrize("case", F32_EDGE_CASES)
+def test_flash_bwd_dkv_f32_at_tile_edges_matches_plain_on_card(d, case):
+    """K4's float32 design at a kv length off its kv tile (64 rows, 32 at
+    D 256) and a q length off its 64-row q items (_f32_edge_inputs' cases;
+    lse from K2), dk and dv summed over the GQA group."""
+    _need_card()
+    rng = np.random.default_rng(20)
+    q, k, v, do, kw = _f32_edge_inputs(rng, d, case)
+    o, lse = t_flash.flash_attention(q, k, v, causal=kw["causal"],
+                                     segment_ids=_segment_ids(kw),
+                                     return_lse=True)
+    delta = t_flash.attention_delta(o, do)
+    before = t_flash.flash_attention.dkv_launches
+    dk, dv = t_flash.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    want_dk, want_dv = t_flash.flash_bwd_dkv_plain(q, k, v, do, lse, delta,
+                                                   **kw)
+    torch.cuda.synchronize()
+    assert t_flash.flash_attention.dkv_launches == before + 1
+    for got, want in ((dk, want_dk), (dv, want_dv)):
+        assert torch.isfinite(got).all()
+        _close(got, want, **F32_BWD)
 
 
 def _bwd_inputs(rng, case, d, dt):
