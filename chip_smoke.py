@@ -14,9 +14,10 @@ every thread's traceback and exit code 1.
    (UBLKCP) and mma.sync (HMMA) instructions; the bf16 K2, K3 and K4
    kernels must have HGMMA and UTMALDG, the bf16 K1 kernel a bulk copy and
    tensor-core instructions, and each has an instance at every head dim of
-   KERNEL_HEAD_DIMS (at D 256 the two-warpgroup K2 and K4, which must
-   spill nothing, as must the float32 K2 and K4 at every head dim but
-   F32_SPILLS');
+   KERNEL_HEAD_DIMS (the two-warpgroup designs, K2 and K4 at D 256 and
+   K4 at D 96, and K2 at D 96, which holds Q's fragments in registers,
+   must spill nothing, as must the float32 K2 and K4 at every head dim
+   but F32_SPILLS');
 3. kernels: each kernel against its plain PyTorch version at Llama-3-8B
    shapes in bf16 (max error against a stated tolerance), with CUDA-event
    times of the kernel, the plain version and one PyTorch library call,
@@ -171,7 +172,11 @@ every thread's traceback and exit code 1.
    ShardedTrainer steps at each width (4 layers) in bf16 and float32,
    each held to the same steps with attention through the plain versions
    on the card. Rows "<kernel>_d<D>" (bf16, float32 under "f32") count
-   the launches of these served and trained runs.
+   the launches of these served and trained runs, and name the bf16
+   design they time ("design"); K2's bf16 split-KV design at D 256 (Sq
+   1, Sk 528, the dense cache's decode) is timed beside its bound, SDPA
+   and this tree's 64-row kernel ("tiles_ms") under "decode_bf16" of
+   its row.
 The float32 phases (4d, 5, dense_cache, 8 and head_dims' float32 runs)
 count their K2, K3 and K4 launches: one log line, "f32_launches" in the
 JSON line, and "launches" in the float32 rows (K2's 64-row design).
@@ -584,20 +589,31 @@ def check_sass(_build) -> None:
         key in fn for key in ("flash_fwd_mma", "bwd_dq_mma", "bwd_dkv_mma"))]
     assert not old, f"an mma.sync design of K2, K3 or K4 remains: {old}"
     # a bf16 instance of each kernel at every head dim the wrappers take;
-    # at D 256 K2 past 64 q rows and K4 are the two-warpgroup designs
+    # at D 256 K2 past 64 q rows and K4, and at D 96 K4, are the
+    # two-warpgroup designs
     for key in ("flash_fwd_wgmma", "bwd_dq_wgmma", "bwd_dkv_wgmma",
                 "paged_decode_mma"):
         for d in KERNEL_HEAD_DIMS:
-            name = (PAIR_ENTRIES.get(key, key) if d == 256 else key)
+            name = TWO_WG_ENTRIES.get(d, {}).get(key, key)
             assert any(f"{name}ILi{d}E" in fn for fn in counts), \
                 f"no {name}<{d}> in the built libraries"
-    assert any("flash_fwd_wgmmaILi256E" in fn for fn in counts), \
-        "no one-warpgroup K2 at D 256 (Sq <= 64) in the built libraries"
+    for d in TWO_WG_ENTRIES:
+        assert any(f"flash_fwd_wgmmaILi{d}E" in fn for fn in counts), \
+            f"no one-warpgroup K2 at D {d} (Sq <= 64) in the built libraries"
 
 
-# the two-warpgroup designs at D 256 (bf16): K2 past 64 q rows, and K4
-PAIR_ENTRIES = {"flash_fwd_wgmma": "flash_fwd_wgmma_pair",
-                "bwd_dkv_wgmma": "bwd_dkv_wgmma_pair"}
+# the two-warpgroup designs (bf16), by head dim: at D 256 K2 past 64 q
+# rows and K4, whose warpgroups exchange S^T's and dP^T's halves; at D 96
+# K4, each warpgroup owning 64 rows of a 128-row kv tile
+TWO_WG_ENTRIES = {
+    256: {"flash_fwd_wgmma": "flash_fwd_wgmma_pair",
+          "bwd_dkv_wgmma": "bwd_dkv_wgmma_pair"},
+    96: {"bwd_dkv_wgmma": "bwd_dkv_wgmma_rows"}}
+
+
+# the one-warpgroup K2 holding Q's fragments in registers (fwd_q_regs in
+# flash_fwd.cu): held to no spill like the two-warpgroup designs
+Q_REGS_ENTRIES = [("flash_fwd_wgmma", 96)]
 
 
 # the float32 K2 and K4 (register tiles): an instance at every head dim,
@@ -613,7 +629,8 @@ F32_SPILL_BYTES = 128
 
 def check_no_spill(reports) -> None:
     """The -Xptxas -v reports: each entry function's spill stores and
-    loads; the two-warpgroup D-256 entries and the float32 K2 and K4 at
+    loads; the two-warpgroup entries (D 256 and 96), the one-warpgroup K2
+    at D 96 (Q's fragments in registers) and the float32 K2 and K4 at
     every head dim must spill nothing, but F32_SPILLS' instances, which
     may spill up to F32_SPILL_BYTES."""
     from ray_tpu_torch.ops.flash_attention import KERNEL_HEAD_DIMS
@@ -629,7 +646,9 @@ def check_no_spill(reports) -> None:
             if m and fn is not None:
                 spills[fn] = (int(m.group(1)), int(m.group(2)))
                 fn = None
-    held = [(name, 256) for name in PAIR_ENTRIES.values()]
+    held = [(name, d) for d, names in TWO_WG_ENTRIES.items()
+            for name in names.values()]
+    held += Q_REGS_ENTRIES
     held += [(name, d) for name in F32_ENTRIES for d in KERNEL_HEAD_DIMS]
     for name, d in held:
         fns = [f for f in spills if f"{name}ILi{d}E" in f]
@@ -858,7 +877,7 @@ def add_bounds(results):
                          >= r["flops"] / peak else "operations")
         r["tflops"] = r["flops"] / r["ms"] / 1e9
         r["bound_share"] = r["bound_ms"] / r["ms"]
-        parent = ("" if r["parent_ms"] is None else
+        parent = ("" if r.get("parent_ms") is None else
                   f", earlier tree {r['parent_ms']:.4f} ms "
                   f"({r['flops'] / r['parent_ms'] / 1e9:.1f} TFLOP/s)")
         log(f"  {name}: kernel {r['ms']:.4f} ms ({r['tflops']:.1f} TFLOP/s, "
@@ -3693,11 +3712,58 @@ def hd_flash_rows(torch, flush, d, hq, hkv, dt, b=2):
             flops=4 * 2 * d * live)}
 
 
+def hd_split_decode(torch, flush, d, hq, hkv, sk=528):
+    """K2's bf16 split-KV design at Sq 1 over sk keys (the dense cache's
+    decode shape, B 1, causal) at head dim d against its plain version,
+    timed beside SDPA and in turns with this tree's 64-row kernel at the
+    same shape (tiles_ms; 64-row, split, split, 64-row)."""
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.ops.flash_attention import (flash_attention,
+                                                   flash_attention_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(200 + d)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(
+        torch.bfloat16) for shape in ((1, 1, hq, d), (1, sk, hkv, d),
+                                      (1, sk, hkv, d)))
+    scale = d ** -0.5
+    kw = dict(causal=True, q_seg=None, kv_seg=None, scale=scale)
+    o, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+    o_p, lse_p = flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    err = max(max_err(o, o_p), max_err(lse, lse_p))
+    assert close_bf16(o, o_p) and max_err(lse, lse_p) <= ATOL_LSE, \
+        f"K2 split-KV at D {d} (bf16, Sq 1, Sk {sk}) disagrees"
+    q_t = q.transpose(1, 2)
+    k_t, v_t = (x.repeat_interleave(hq // hkv, dim=2).transpose(1, 2)
+                .contiguous() for x in (k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    o_t, lse_t = fa._launch(q, k, v, max_sq=0, **kw)  # the 64-row kernel
+    torch.cuda.synchronize()
+    assert close_bf16(o_t, o_p) and max_err(lse_t, lse_p) <= ATOL_LSE, \
+        f"K2's 64-row kernel at D {d} (bf16, Sq 1, Sk {sk}) disagrees"
+    t = [time_ms(lambda m=m: fa._launch(q, k, v, max_sq=m, **kw),
+                 flush=flush) for m in (0, 1, 1, 0)]
+    row = dict(
+        max_abs_err=err, ms=(t[1] + t[2]) / 2, tiles_ms=(t[0] + t[3]) / 2,
+        plain_ms=time_ms(lambda: flash_attention_plain(q, k, v, **kw),
+                         flush=flush),
+        library_ms=time_ms(lambda: sdpa(q_t, k_t, v_t), flush=flush),
+        bytes=(2 * q.numel() + k.numel() + v.numel()) * 2 + lse.numel() * 4,
+        flops=4 * hq * sk * d)
+    log(f"K2 split-KV at D {d} (bf16, Sq 1, Sk {sk}, {hq}/{hkv} heads), "
+        f"beside the 64-row kernel's {row['tiles_ms']:.4f} ms:")
+    add_bounds({f"flash_fwd_decode_d{d} bf16": row})
+    return {key: row[key] for key in (
+        "max_abs_err", "ms", "tiles_ms", "plain_ms", "library_ms",
+        "bound_ms", "bound_by")}
+
+
 def check_head_dim_kernels(torch, flush):
     """K1-K4 at head dims 32, 96 and 256, in bf16 and float32, against
     their plain versions at the widths' shapes (Hq/Hkv 8/4, 32/32, 16/8):
     rows keyed "<kernel>_d<D>", the bf16 numbers first and the float32
-    ones under "f32"."""
+    ones under "f32", each naming the bf16 design it times; at D 256 also
+    the bf16 split-KV K2 at the dense cache's decode shape."""
     rows = {}
     for d, width in HEAD_DIM_WIDTHS.items():
         hq, hkv = width["num_heads"], width["num_kv_heads"]
@@ -3715,6 +3781,15 @@ def check_head_dim_kernels(torch, flush):
                 "max_abs_err", "ms", "parent_ms", "plain_ms", "library_ms",
                 "bound_ms", "bound_by", "tflops", "bound_share")}
             rows[f"{kname}_d{d}"] = row
+        two = TWO_WG_ENTRIES.get(d, {})
+        for kname, entry in (("paged_decode", "paged_decode_mma"),
+                             ("flash_fwd", "flash_fwd_wgmma"),
+                             ("flash_bwd_dq", "bwd_dq_wgmma"),
+                             ("flash_bwd_dkv", "bwd_dkv_wgmma")):
+            rows[f"{kname}_d{d}"]["design"] = f"{two.get(entry, entry)}<{d}>"
+        if d == 256:
+            rows["flash_fwd_d256"]["decode_bf16"] = hd_split_decode(
+                torch, flush, d, hq, hkv)
     return rows
 
 
@@ -4233,7 +4308,8 @@ def main() -> int:
          "tflops": r["tflops"], "bound_share": r["bound_share"],
          "parent_ms": r["parent_ms"],
          **{k: r[k] for k in ("decode_us", "merge_us", "bf16", "f32",
-                              "f32_d128") if k in r}}
+                              "f32_d128", "design", "decode_bf16")
+            if k in r}}
         for kname, r in kernels.items()],
         "engine": {"ttft_ms": eng["ttft_ms"],
                    "decode_tok_s": eng["decode_tok_s"],

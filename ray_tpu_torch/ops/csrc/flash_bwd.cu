@@ -31,7 +31,9 @@
 // variants; at D 256 the float32 variants take 32-row tiles of their own
 // rows (shared memory), and the bf16 K4 is a block of two warpgroups, one
 // computing S^T and the other dP^T, each owning half of dK's and dV's
-// columns (registers): see each kernel.
+// columns (registers); at D 96 the bf16 K4 is a block of two warpgroups
+// over a 128-row kv tile, each owning 64 of its rows (bwd_dkv_wgmma_rows):
+// see each kernel.
 // Two variants each, chosen by the input type, as in K2: an exact
 // scalar-FMA float32 variant (register tiles read as 16-byte shared loads,
 // their operands copied in flight by cp.async: see bwd_dq_f32 and
@@ -39,12 +41,12 @@
 // through an mbarrier ring, p and ds rounded to bf16 in registers as the
 // A operand of the next product, and every transposed operand read
 // MN-major through the descriptor, so no tile is copied transposed (see
-// bwd_dkv_wgmma, bwd_dkv_wgmma_pair and bwd_dq_wgmma).
-// Not done yet: K3 at D 256 in two warpgroups; a producer warp with
-// setmaxnreg, and overlapping one tile's exp with the next tile's
-// products; one fused kernel writing dq by atomics (FlashAttention-2's
-// layout) instead of two passes; two K3 float32 blocks an SM at D 96 and
-// 128 (their tiles take 145,920 and 186,880 bytes of shared memory).
+// bwd_dkv_wgmma, bwd_dkv_wgmma_pair, bwd_dkv_wgmma_rows and bwd_dq_wgmma).
+// Not done yet: K3 at D 96 and 256 redesigned; bwd_dkv_wgmma_rows' design
+// at the other head dims (chip_variants.py probes it at D 64 and 128); one
+// fused kernel writing dq by atomics (FlashAttention-2's layout) instead
+// of two passes; two K3 float32 blocks an SM at D 96 and 128 (their tiles
+// take 145,920 and 186,880 bytes of shared memory).
 #include "hopper.cuh"
 
 namespace {
@@ -1170,6 +1172,407 @@ bwd_dkv_wgmma_pair(const __grid_constant__ CUtensorMap kmap,
 }
 
 // ---------------------------------------------------------------------
+// K4 for Hopper at D 96, bf16: two warpgroups over a 128-row kv tile,
+// whose ring stages are released without a block barrier. One
+// block per (128-row kv tile, kv head, batch row); warpgroup w owns kv
+// rows k0 + 64w .. k0 + 64w + 63 and all D columns of their dK and dV (48
+// + 48 float32 accumulators a thread at D 96: nothing is exchanged). Both
+// warpgroups read each ring stage once (Q, dO, lse, delta, q segment
+// ids), which halves the q-side loads and waits per kv row; the K and V
+// tiles of the 128 rows load once. Per item, in bwd_dkv_wgmma's order (q
+// heads of the GQA group, then q tiles from the causal start of the
+// block's first row), each warpgroup runs bwd_dkv_wgmma's four products
+// on its 64 rows and rounds P^T and dS^T to bf16 at the same place, so dK
+// and dV equal that kernel's bit for bit. What held that kernel back, and
+// what this one does about it:
+//   - each item ran in series (products, wait, exps, products, wait,
+//     block barrier) and the tensor cores idled through the exps: here
+//     the warpgroups take turns at the tensor cores (named barriers 1 and
+//     2 pass a token: warpgroup w waits on 1 + w before it issues its
+//     products and hands the turn over as soon as they are issued), so
+//     one warpgroup's exps and dS^T run while the other's products
+//     occupy them (FlashAttention-3's ping-pong);
+//   - a stage was released by a block barrier: here, at its turn for
+//     item i, warpgroup 1 knows that both warpgroups are done with item
+//     i - 1 (warpgroup 0 has issued item i's products) and refills that
+//     stage with item i - 1 + S, all its threads alike: thread 0 issues
+//     the TMA of Q and dO, threads below 64 copy lse, delta and segment
+//     ids by cp.async, whose landing arrives on the stage's "full"
+//     mbarrier. The loads are predicated, not branched: a branch that
+//     some threads of a warpgroup skip made ptxas serialise every wgmma
+//     of the function;
+//   - S^T = K Q^T and dP^T = V dO^T read K and V from registers (wgmma
+//     with A from registers): the fragments of the warpgroup's 64 rows
+//     load once, and each product reads one operand from shared memory
+//     instead of two;
+//   - the exps were predicated on a runtime mask flag, which ptxas
+//     serialised: probs_rows<true/false> is chosen per item and
+//     warpgroup.
+// A warpgroup walks no item its rows cannot see under the causal bound
+// (the two halves start one q tile apart) and none if its rows start at
+// or past sk: there it only passes the token.
+// Design constants, each measured against its alternative by
+// chip_variants.py: ring stages, the grid order, K or V read from shared
+// memory. A producer warpgroup under setmaxnreg and FlashAttention-3's
+// intra-warpgroup overlap were slower and spilled (PERF.md has the
+// readings).
+// Shared memory at D 96 and 3 stages: 125,216 bytes, one block an SM.
+// the head dims that take this design (D 96; chip_variants.py probes it
+// at D 64 and 128, which keep bwd_dkv_wgmma)
+__host__ __device__ constexpr bool rows_design(int d) { return d == 96; }
+constexpr int kRowsStages = 3;          // Q/dO ring stages
+constexpr bool kRowsHeavyFirst = true;  // kv tile 0 of every head first
+constexpr bool kRowsKRegs = true;       // S^T with K's fragments in registers
+constexpr bool kRowsVRegs = true;       // dP^T with V's fragments likewise
+
+template <int D>
+struct DkvRowsSmem {  // byte offsets into the 1024-aligned shared memory
+  static constexpr int S = kRowsStages;
+  static constexpr int tile = 64 * D * 2;  // one [64][D] bf16 tile
+  static constexpr int k = 0, v = 2 * tile;           // 2 K, 2 V tiles
+  static constexpr int q = 4 * tile;                  // S Q tiles
+  static constexpr int dout = q + S * tile;           // S dO tiles
+  static constexpr int vec = dout + S * tile;         // [S][3][kBQ]
+  static constexpr int bars = vec + S * 3 * kBQ * 4;  // K/V, full
+  static constexpr int bytes = bars + (1 + S) * 8;
+  static constexpr int threads = 2 * kWgThreads;
+  // warpgroup 1 refills the stage of item j at its turn for item j + 1
+  static_assert(S > 1, "the ring must lead the refill");
+};
+static_assert(DkvRowsSmem<96>::bytes + kSmemSlack <= 232448,
+              "K4's two-warpgroup ring at D 96");
+
+// Copy row r of item i's lse, delta and q segment id (zeros past sq) into
+// a stage's vectors by cp.async (as stored: the consumers scale lse),
+// where `on`.
+__device__ __forceinline__ void copy_vecs(bool on, const BwdParams& p, int b,
+                                          int hk, int rep, int qb0,
+                                          int per_head, int i, int r,
+                                          float* v) {
+  const int h = hk * rep + i / per_head;
+  const int qpos = (qb0 + i % per_head) * kBQ + r;
+  const bool in = qpos < p.sq;
+  const size_t row = in ? row_index(p, b, qpos, h) : 0;
+  cp_async4_if(on, v + r, p.lse + row, in ? 4 : 0);
+  cp_async4_if(on, v + kBQ + r, p.delta + row, in ? 4 : 0);
+  const bool seg = in && p.qseg != nullptr;
+  cp_async4_if(on, v + 2 * kBQ + r,
+               seg ? static_cast<const void*>(p.qseg + (size_t)b * p.sq +
+                                              qpos)
+                   : p.lse,
+               seg ? 4 : 0);
+}
+
+// probs_t on a stage whose lse is stored unscaled: the same
+// lse log2(e) product, rounded on its own as bwd_dkv_wgmma stores it, so
+// the exps' arguments are the same bits
+template <bool kMask>
+__device__ __forceinline__ void probs_rows(float* x, const BwdParams& p,
+                                           int q0, const int* kpos,
+                                           const int* ks, const int* qseg_s,
+                                           const float* lse_s, int tq,
+                                           float scale_log2) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * j + 2 * tq + e, idx = 4 * j + 2 * rr + e;
+        const bool keep =
+            !kMask || live(p, q0 + c, kpos[rr], qseg_s[c], ks[rr]);
+        const float l2 = __fmul_rn(lse_s[c], kLog2e);
+        x[idx] = keep ? exp2f(x[idx] * scale_log2 - l2) : 0.f;
+      }
+}
+
+// A warpgroup's S^T = K Q^T and dP^T = V dO^T on its 64 kv rows (K, V)
+// and an item's 64 q rows (Q, dO), all K-major as stored, from the
+// descriptors of their k16 step 0: wgmma issued, not committed.
+// With kRowsKRegs, S^T takes K from this thread's fragments kf, and with
+// kRowsVRegs dP^T V from vf (the same products, A read from registers).
+template <int D>
+__device__ __forceinline__ void st_dpt(float* s, float* dp, uint64_t k_d,
+                                       uint64_t v_d, uint64_t q_d,
+                                       uint64_t do_d,
+                                       const uint32_t (*kf)[4],
+                                       const uint32_t (*vf)[4]) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    if constexpr (kRowsKRegs)
+      wgmma_rs_kb64(s, kf[kk], desc_advance(q_d, kmajor_off<D, kBQ>(kk)),
+                    kk > 0);
+    else
+      wgmma_ss<64>(s, desc_advance(k_d, kmajor_off<D, kBK>(kk)),
+                   desc_advance(q_d, kmajor_off<D, kBQ>(kk)), kk > 0);
+  }
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    if constexpr (kRowsVRegs)
+      wgmma_rs_kb64(dp, vf[kk], desc_advance(do_d, kmajor_off<D, kBQ>(kk)),
+                    kk > 0);
+    else
+      wgmma_ss<64>(dp, desc_advance(v_d, kmajor_off<D, kBK>(kk)),
+                   desc_advance(do_d, kmajor_off<D, kBQ>(kk)), kk > 0);
+  }
+}
+
+// dV += P^T dO and dK += dS^T Q: A from registers (pa, da), dO and Q
+// MN-major through the transpose bit, from the descriptors of their k16
+// step 0; wgmma issued, not committed.
+template <int D>
+__device__ __forceinline__ void dv_dk(float* dv, float* dk,
+                                      const uint32_t (*pa)[4],
+                                      const uint32_t (*da)[4],
+                                      uint64_t do_d, uint64_t q_d) {
+#pragma unroll
+  for (int tt = 0; tt < kBQ / 16; ++tt)
+    wgmma_rs<D>(dv, pa[tt], desc_advance(do_d, mnmajor_off<D, kBQ>(tt)), 1);
+#pragma unroll
+  for (int tt = 0; tt < kBQ / 16; ++tt)
+    wgmma_rs<D>(dk, da[tt], desc_advance(q_d, mnmajor_off<D, kBQ>(tt)), 1);
+}
+
+// P^T over S^T (masked where `masked`, chosen per item) and dS^T =
+// P^T (dP^T - delta) scale over dP^T
+__device__ __forceinline__ void probs_ds(bool masked, float* s, float* dp,
+                                         const BwdParams& p, int q0,
+                                         const int* kpos, const int* ks,
+                                         const int* qseg_s,
+                                         const float* lse_s,
+                                         const float* delta_s, int tq,
+                                         float scale_log2) {
+  if (masked)
+    probs_rows<true>(s, p, q0, kpos, ks, qseg_s, lse_s, tq, scale_log2);
+  else
+    probs_rows<false>(s, p, q0, kpos, ks, qseg_s, lse_s, tq, scale_log2);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * j + 2 * tq + e, idx = 4 * j + 2 * rr + e;
+        dp[idx] = s[idx] * (dp[idx] - delta_s[c]) * p.scale;
+      }
+}
+
+// Warpgroup WG's rows of bwd_dkv_wgmma_rows' kv tile. WG is a template
+// parameter, so no branch or descriptor below depends on the warpgroup at
+// run time.
+template <int D, int WG, class Refill>
+__device__ __forceinline__ void dkv_rows(unsigned char* smem,
+                                         const BwdParams& p, int b, int hk,
+                                         int k0, int qb0, int per_head,
+                                         int n_items, Refill refill) {
+  using L = DkvRowsSmem<D>;
+  constexpr int S = L::S;
+  constexpr int NO = D / 2;  // dk (and dv) accumulators per thread
+  constexpr int KK = D / 16;
+  constexpr int kPair = 2 * kWgThreads;  // threads of a named barrier
+  const int t = threadIdx.x % kWgThreads;
+  const int warp = t / 32, lane = t % 32;
+  const int g = lane >> 2, tq = lane & 3;
+  const int offset = p.sk - p.sq;
+  const int kw = k0 + WG * kBK;  // this warpgroup's first kv row
+  const int qbw = first_q_tile(p, kw);
+  const bool rows_in = kw < p.sk;
+  const float scale_log2 = p.scale * kLog2e;
+  const unsigned char* k_s = smem + L::k + WG * L::tile;
+  const unsigned char* v_s = smem + L::v + WG * L::tile;
+  const unsigned char* q_s = smem + L::q;
+  const unsigned char* do_s = smem + L::dout;
+  const float* vec_s = reinterpret_cast<const float*>(smem + L::vec);
+  // descriptors at k16 step 0: K and V K-major; stage 0's Q and dO K-major
+  // and MN-major (a stage moves them by its offset)
+  const uint64_t k_d = desc_kmajor<D, kBK>(k_s, 0);
+  const uint64_t v_d = desc_kmajor<D, kBK>(v_s, 0);
+  const uint64_t q_d = desc_kmajor<D, kBQ>(q_s, 0);
+  const uint64_t do_d = desc_kmajor<D, kBQ>(do_s, 0);
+  const uint64_t q_mn = desc_mnmajor<D, kBQ>(q_s, 0);
+  const uint64_t do_mn = desc_mnmajor<D, kBQ>(do_s, 0);
+  uint64_t* kvbar = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* full = kvbar + 1;
+
+  // this thread's two kv rows: kw + 16 warp + g and 8 below
+  int kpos[2], ks[2];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    kpos[rr] = kw + warp * 16 + g + 8 * rr;
+    ks[rr] = p.kseg != nullptr
+                 ? p.kseg[(size_t)b * p.sk + min(kpos[rr], p.sk - 1)] : 0;
+  }
+  float dk[NO], dv[NO], s[32], dp[32];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) dk[i] = dv[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+  uint32_t pa[4][4], da[4][4];  // A fragments of P^T and dS^T
+  if (WG == 1 && n_items > 0) named_arrive(1, kPair);  // 0 goes first
+  mbar_wait(kvbar, 0);
+  uint32_t kf[kRowsKRegs ? KK : 1][4];  // K's A fragments
+  uint32_t vf[kRowsVRegs ? KK : 1][4];  // V's
+  if constexpr (kRowsKRegs)
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk)
+      load_afrag<D, kBK>(kf[kk], k_s, warp, lane, kk);
+  if constexpr (kRowsVRegs)
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk)
+      load_afrag<D, kBK>(vf[kk], v_s, warp, lane, kk);
+
+  for (int i = 0; i < n_items; ++i) {
+    const int st = i % S;
+    const int qt = qb0 + i % per_head, q0 = qt * kBQ;
+    const bool active = rows_in && qt >= qbw;  // its rows see this item
+    const float* lse_s = vec_s + st * 3 * kBQ;
+    const float* delta_s = lse_s + kBQ;
+    const int* qseg_s = reinterpret_cast<const int*>(delta_s + kBQ);
+    if (active) mbar_wait(&full[st], (i / S) & 1);
+
+    // S^T = K Q^T and dP^T = V dO^T, at this warpgroup's turn, which passes on once the products are
+    // issued. Each product's issue and its wait stay in one branch: ptxas
+    // serialises every wgmma of a function in which it cannot follow them.
+    named_sync(1 + WG, kPair);
+    const bool pass = WG == 0 || i + 1 < n_items;  // the other has a turn
+    // warpgroup 0 has issued item i's products, so both warpgroups are
+    // done with item i - 1's stage: warpgroup 1 refills it, all its
+    // threads alike (predicated loads: no branch in the loop)
+    if (WG == 1 && i >= 1 && i - 1 + S < n_items)
+      refill(i - 1 + S, (i - 1) % S, t);
+    const bool masked = p.kseg != nullptr || q0 + kBQ > p.sq ||
+                        kw + kBK > p.sk ||
+                        (p.causal && kw + kBK - 1 > q0 + offset);
+    if (active) {
+      wgmma_fence();
+      fence_regs<32>(s);
+      fence_regs<32>(dp);
+      st_dpt<D>(s, dp, k_d, v_d, desc_advance(q_d, st * L::tile),
+                desc_advance(do_d, st * L::tile), kf, vf);
+      wgmma_commit();
+      if (pass) named_arrive(2 - WG, kPair);
+      wgmma_wait<0>();
+      fence_regs<32>(s);
+      fence_regs<32>(dp);
+      probs_ds(masked, s, dp, p, q0, kpos, ks, qseg_s, lse_s, delta_s, tq,
+               scale_log2);
+      // dV += P^T dO, dK += dS^T Q: A from registers, B MN-major
+#pragma unroll
+      for (int tt = 0; tt < kBQ / 16; ++tt) {
+        wg_frag(pa[tt], s, tt);
+        wg_frag(da[tt], dp, tt);
+      }
+      wgmma_fence();
+      fence_regs<NO>(dv);
+      fence_regs<NO>(dk);
+      dv_dk<D>(dv, dk, pa, da, desc_advance(do_mn, st * L::tile),
+               desc_advance(q_mn, st * L::tile));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs<NO>(dv);
+      fence_regs<NO>(dk);
+    } else if (pass) {
+      named_arrive(2 - WG, kPair);
+    }
+  }
+
+  if (!rows_in) return;
+  bf16* dk_out = static_cast<bf16*>(p.dk);
+  bf16* dv_out = static_cast<bf16*>(p.dv);
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    if (kpos[rr] >= p.sk) continue;
+    const size_t row = (((size_t)b * p.sk + kpos[rr]) * p.hkv + hk) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int col = j * 8 + tq * 2;
+      *reinterpret_cast<uint32_t*>(dk_out + row + col) =
+          pack_bf16(dk[4 * j + 2 * rr], dk[4 * j + 2 * rr + 1]);
+      *reinterpret_cast<uint32_t*>(dv_out + row + col) =
+          pack_bf16(dv[4 * j + 2 * rr], dv[4 * j + 2 * rr + 1]);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(DkvRowsSmem<D>::threads, 1)
+bwd_dkv_wgmma_rows(const __grid_constant__ CUtensorMap kmap,
+                   const __grid_constant__ CUtensorMap vmap,
+                   const __grid_constant__ CUtensorMap qmap,
+                   const __grid_constant__ CUtensorMap omap, BwdParams p,
+                   int B) {
+  using L = DkvRowsSmem<D>;
+  constexpr int S = L::S;
+  const int per_tile = p.hkv * B;
+  const int n_kt = (p.sk + 2 * kBK - 1) / (2 * kBK);
+  const int order = blockIdx.x / per_tile;
+  const int kt = kRowsHeavyFirst ? order : n_kt - 1 - order;
+  const int rest = blockIdx.x % per_tile;
+  const int hk = rest % p.hkv, b = rest / p.hkv;
+  const int rep = p.hq / p.hkv;
+  const int tid = threadIdx.x;
+  const int k0 = kt * 2 * kBK;
+  const int qb0 = first_q_tile(p, k0);
+  const int per_head = (p.sq + kBQ - 1) / kBQ - qb0;
+  const int n_items = rep * per_head;
+  const bool two = k0 + kBK < p.sk;  // the second 64 rows hold kv rows
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_smem(smem_raw);
+  unsigned char* q_s = smem + L::q;
+  unsigned char* do_s = smem + L::dout;
+  float* vec_s = reinterpret_cast<float*>(smem + L::vec);
+  uint64_t* kvbar = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* full = kvbar + 1;
+
+  // item i (q head hk * rep + i / per_head, q tile qb0 + i % per_head)
+  // into stage `slot` by warpgroup 1's thread t: thread 0 issues the TMA
+  // of its Q and dO tiles, threads below kBQ copy row t of its vectors and
+  // arrive once they land
+  auto refill = [&](int i, int slot, int t) {
+    const int h = hk * rep + i / per_head;
+    const int q0 = (qb0 + i % per_head) * kBQ;
+    mbar_expect_tx_if(t == 0, &full[slot], 2 * L::tile);
+    tma_load_tile_if<D, kBQ>(t == 0, q_s + slot * L::tile, &qmap,
+                             &full[slot], q0, h, b);
+    tma_load_tile_if<D, kBQ>(t == 0, do_s + slot * L::tile, &omap,
+                             &full[slot], q0, h, b);
+    copy_vecs(t < kBQ, p, b, hk, rep, qb0, per_head, i, t,
+              vec_s + slot * 3 * kBQ);
+    cp_async_mbar_arrive_if(t < kBQ, &full[slot]);
+  };
+
+  if (tid == 0) {
+    mbar_init(kvbar, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1 + kBQ);  // the TMA's bytes, kBQ copiers
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();  // barriers initialised
+  if (tid == 0) {  // K and V of the block's rows, once
+    mbar_expect_tx(kvbar, (two ? 4 : 2) * L::tile);
+    tma_load_tile<D, kBK>(smem + L::k, &kmap, kvbar, k0, hk, b);
+    tma_load_tile<D, kBK>(smem + L::v, &vmap, kvbar, k0, hk, b);
+    if (two) {
+      tma_load_tile<D, kBK>(smem + L::k + L::tile, &kmap, kvbar, k0 + kBK,
+                            hk, b);
+      tma_load_tile<D, kBK>(smem + L::v + L::tile, &vmap, kvbar, k0 + kBK,
+                            hk, b);
+    }
+  }
+
+  if (tid < kWgThreads)  // warpgroup 0 fills the ring's first stages
+    for (int s = 0; s < S && s < n_items; ++s) refill(s, s, tid);
+
+  const int wg = tid / kWgThreads;
+  if (wg == 0)
+    dkv_rows<D, 0>(smem, p, b, hk, k0, qb0, per_head, n_items, refill);
+  else
+    dkv_rows<D, 1>(smem, p, b, hk, k0, qb0, per_head, n_items, refill);
+}
+
+// ---------------------------------------------------------------------
 // K3 for Hopper, bf16: K2's loop with one more product. One warpgroup
 // (128 threads) per (64-row q tile, q head, batch row); warp w owns q rows
 // 16w..16w+15. Thread 0 loads the Q and dO tiles once by TMA and keeps
@@ -1381,7 +1784,14 @@ int launch_dkv_wgmma(const BwdParams& p, int B, cudaStream_t stream) {
                    kBQ);
   if (err != 0) return err;
   const int blocks = (p.sk + kBK - 1) / kBK * p.hkv * B;
-  if constexpr (D == 256) {
+  if constexpr (rows_design(D)) {
+    const int smem = DkvRowsSmem<D>::bytes + kSmemSlack;
+    cudaFuncSetAttribute(bwd_dkv_wgmma_rows<D>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    const int row_blocks = (p.sk + 2 * kBK - 1) / (2 * kBK) * p.hkv * B;
+    bwd_dkv_wgmma_rows<D><<<row_blocks, DkvRowsSmem<D>::threads, smem,
+                            stream>>>(km, vm, qm, om, p, B);
+  } else if constexpr (D == 256) {
     const int smem = DkvPairSmem<D>::bytes + kSmemSlack;
     cudaFuncSetAttribute(bwd_dkv_wgmma_pair<D>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

@@ -37,13 +37,14 @@
 // All loop over 64-row kv tiles, and the causal bound ends the loop
 // early. Head dims 16, 32, 64, 96, 128 and 256, each its own instance of
 // both variants (the bf16 tiles' layout for each is hopper.cuh's).
-// Not done yet: the two-warpgroup design at the other head dims (where a
-// one-warpgroup block leaves room for a second block on the SM), a TMA
-// producer warp with setmaxnreg, and overlapping one tile's softmax with
-// the same warpgroup's next S product; a TMA store of o; reading ctx pages
-// through the block table instead of a gathered copy; in the split-KV
-// design, tensor-core products (mma.sync, as K1's) and the chunk's kv rows
-// spread over the warps where a block has fewer rows than warps.
+// Tried at D 96 and slower there than flash_fwd_wgmma (PERF.md has the
+// readings): warpgroups sharing each K/V tile of a 128- or 192-row q tile
+// with stages released by mbarriers, a producer warp, and one tile's
+// softmax overlapped with the next S product. Not done yet: a TMA store
+// of o; reading ctx pages through the block table instead of a gathered
+// copy; in the split-KV design, tensor-core products (mma.sync, as K1's)
+// and the chunk's kv rows spread over the warps where a block has fewer
+// rows than warps.
 #include "hopper.cuh"
 
 namespace {
@@ -398,6 +399,13 @@ __device__ __forceinline__ void online_softmax(
   }
 }
 
+// The head dims at which flash_fwd_wgmma holds Q's fragments in
+// registers for S = Q K^T (wgmma with A from registers: the product reads
+// K alone from shared memory). At D 96 that is 24 more registers a
+// thread (about 152), which three blocks an SM still hold; the other head
+// dims keep Q in shared memory (load_afrag takes the 64-byte swizzle only).
+__host__ __device__ constexpr bool fwd_q_regs(int d) { return d == 96; }
+
 template <int D>
 struct FwdSmem {  // byte offsets into the 1024-aligned shared memory
   static constexpr int tile = kBQ * D * 2;  // a Q, K or V tile (kBQ == kBK)
@@ -477,6 +485,13 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
   for (int i = 0; i < 32; ++i) s[i] = 0.f;
   __syncthreads();  // barriers initialised, first segment ids staged
   mbar_wait(qbar, 0);
+  // with fwd_q_regs(D), Q's A fragments, loaded once
+  constexpr bool kQRegs = fwd_q_regs(D);
+  uint32_t qf[kQRegs ? KK : 1][4];
+  if constexpr (kQRegs)
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk)
+      load_afrag<D, kBQ>(qf[kk], q_s, warp, lane, kk);
 
   for (int kb = 0; kb < n_kb; ++kb) {
     const int st = kb % kStages, k0 = kb * kBK;
@@ -488,9 +503,13 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
     wgmma_fence();
     fence_regs<32>(s);
 #pragma unroll
-    for (int kk = 0; kk < KK; ++kk)
-      wgmma_ss<64>(s, desc_kmajor<D, kBQ>(q_s, kk),
-                   desc_kmajor<D, kBK>(kt, kk), kk > 0);
+    for (int kk = 0; kk < KK; ++kk) {
+      if constexpr (kQRegs)
+        wgmma_rs_kb64(s, qf[kk], desc_kmajor<D, kBK>(kt, kk), kk > 0);
+      else
+        wgmma_ss<64>(s, desc_kmajor<D, kBQ>(q_s, kk),
+                     desc_kmajor<D, kBK>(kt, kk), kk > 0);
+    }
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs<32>(s);

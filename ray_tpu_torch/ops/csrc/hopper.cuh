@@ -1,18 +1,23 @@
 // Hopper (sm_90a) building blocks shared by the wgmma/TMA kernels K2
 // (flash_fwd.cu), K3 and K4 (flash_bwd.cu) and the bulk-copy kernel K1
 // (paged_decode.cu), as raw PTX in the style of common.cuh:
-//   - mbarrier init / arrive.expect_tx / try_wait.parity, with a clock
-//     guard that traps a wait which never completes (a wrong parity or
-//     byte count), so a deadlock ends the launch with an error instead of
-//     hanging the card; named barriers (bar.sync / bar.arrive) that order
-//     two warpgroups of one block (a wait on one has no such guard);
+//   - mbarrier init / arrive.expect_tx / try_wait.parity (the arrivals
+//     also predicated, for code a warpgroup runs between a wgmma and its
+//     wait), with a clock guard that traps a wait which never
+//     completes (a wrong parity or byte count), so a deadlock ends the
+//     launch with an error instead of hanging the card; named barriers
+//     (bar.sync / bar.arrive) that order the warpgroups of one block (a
+//     wait on one has no such guard);
 //   - cp.async.bulk.tensor (TMA) loads of 4-d boxes into shared memory,
 //     and the 1-d bulk copy of a contiguous range (no tensor map);
 //   - wgmma.mma_async m64nNk16, f32 += bf16 * bf16, with A from shared
 //     memory (wgmma_ss, N 64) or from registers (wgmma_rs, N 16, 32, 64,
-//     96, 128 and 256: N / 2 accumulators a thread), and wgmma.fence /
-//     commit_group / wait_group; one warp's mma.sync m16n8k16 (mma_bf16);
-//   - the shared-memory matrix descriptor of a tile loaded by TMA;
+//     96, 128 and 256: N / 2 accumulators a thread, B MN-major;
+//     wgmma_rs_kb64, B K-major), and wgmma.fence / commit_group /
+//     wait_group; one warp's mma.sync m16n8k16 (mma_bf16);
+//   - the shared-memory matrix descriptor of a tile loaded by TMA, moved
+//     by constant offsets (desc_advance), and an A fragment read from
+//     such a tile into registers (load_afrag);
 //   - host-side tensor maps (cuTensorMapEncodeTiled, reached through
 //     cudaGetDriverEntryPoint so the library needs no -lcuda).
 //
@@ -80,6 +85,41 @@ __device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
   return done != 0;
 }
 
+// mbar_expect_tx issued only where `on`, and an arrival on `bar` once
+// every cp.async copy this thread issued before has landed (one of the
+// count the barrier was initialised with: .noinc), likewise: each as a
+// predicated instruction, not a branch, so that code a warpgroup runs
+// between a wgmma and its wait holds no path some of its threads skip
+// (ptxas serialises every wgmma of a function that has one)
+__device__ __forceinline__ void mbar_expect_tx_if(bool on, uint64_t* bar,
+                                                  uint32_t bytes) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %2, 0;\n"
+      "@p mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n}\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes), "r"((int)on)
+      : "memory");
+}
+__device__ __forceinline__ void cp_async_mbar_arrive_if(bool on,
+                                                        uint64_t* bar) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n"
+      "@p cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n}\n" ::"r"(
+          smem_addr(bar)),
+      "r"((int)on)
+      : "memory");
+}
+// cp.async of 4 bytes (zero-filled past src_bytes) where `on`, predicated
+__device__ __forceinline__ void cp_async4_if(bool on, void* dst,
+                                             const void* src, int src_bytes) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %3, 0;\n"
+      "@p cp.async.ca.shared.global [%0], [%1], 4, %2;\n}\n" ::"r"(
+          smem_addr(dst)),
+      "l"(src), "r"(src_bytes), "r"((int)on)
+      : "memory");
+}
+
 // a wait that has not completed after this many SM cycles (seconds at the
 // H100's clock, where a tile's load takes microseconds) is a deadlock
 constexpr long long kMbarTimeoutCycles = 1ll << 33;
@@ -132,6 +172,21 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       : "memory");
 }
 
+// tma_load_4d issued only where `on` (predicated, as mbar_expect_tx_if)
+__device__ __forceinline__ void tma_load_4d_if(bool on, void* dst,
+                                               const CUtensorMap* map,
+                                               uint64_t* bar, int c0, int c1,
+                                               int c2, int c3) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %7, 0;\n"
+      "@p cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n}\n" ::"r"(
+          smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3), "r"((int)on)
+      : "memory");
+}
+
 // The swizzle of a row of d bf16 values: the widest of 128, 64 or 32
 // bytes that divides its 2 * d bytes (d a multiple of 16)
 __host__ __device__ constexpr int swizzle_bytes(int d) {
@@ -152,6 +207,21 @@ __device__ __forceinline__ void tma_load_tile(void* dst, const CUtensorMap* map,
   for (int c = 0; c < D / BC; ++c)
     tma_load_4d(static_cast<char*>(dst) + c * rows * BC * 2, map, bar, c * BC,
                 h, s0, b);
+}
+
+// tma_load_tile issued only where `on` (predicated)
+template <int D, int rows>
+__device__ __forceinline__ void tma_load_tile_if(bool on, void* dst,
+                                                 const CUtensorMap* map,
+                                                 uint64_t* bar, int s0, int h,
+                                                 int b) {
+  constexpr int BC = swizzle_bytes(D) / 2;  // columns per box
+  static_assert(D % 16 == 0 && D % BC == 0,
+                "a tile must be a whole number of swizzle boxes");
+#pragma unroll
+  for (int c = 0; c < D / BC; ++c)
+    tma_load_4d_if(on, static_cast<char*>(dst) + c * rows * BC * 2, map, bar,
+                   c * BC, h, s0, b);
 }
 
 // ----------------------------------------------------------------- wgmma
@@ -207,6 +277,27 @@ __device__ __forceinline__ uint64_t desc_mnmajor(const void* tile, int kk,
   return make_desc(smem_addr(tile) + (col0 / (SW / 2)) * rows * SW +
                        kk * 16 * SW,
                    rows * SW, 8 * SW, Swizzle<D>::code);
+}
+
+// Byte offsets, from a tile's start, of the descriptors above: a loop
+// that moves one descriptor by these (desc_advance) spends one add per
+// wgmma where desc_kmajor and desc_mnmajor spend about ten instructions,
+// which the compiler cannot fold (the mask and shift hide the sum).
+template <int D, int rows>
+__host__ __device__ constexpr uint32_t kmajor_off(int kk) {
+  constexpr int SW = Swizzle<D>::bytes;
+  return (kk / (SW / 32)) * rows * SW + (kk % (SW / 32)) * 32;
+}
+template <int D, int rows>
+__host__ __device__ constexpr uint32_t mnmajor_off(int kk) {
+  return kk * 16 * Swizzle<D>::bytes;
+}
+// `desc` moved by `bytes` (a multiple of 16) in shared memory: the start
+// address is its low 14 bits in units of 16 bytes, which an address below
+// 256 KB never carries out of.
+__device__ __forceinline__ uint64_t desc_advance(uint64_t desc,
+                                                 uint32_t bytes) {
+  return desc + (bytes >> 4);
 }
 
 // D(64 x N) (+)= A(64 x 16) * B(16 x N), A and B K-major in shared memory.
@@ -400,6 +491,30 @@ __device__ __forceinline__ void wgmma_rs<256>(float* d, const uint32_t* a,
         "r"(scale_d));
 }
 
+// D(64 x 64) (+)= A(64 x 16) * B(16 x 64), A in registers (a fragment as
+// wg_frag or load_afrag lay it out) and B K-major in shared memory: the
+// product of wgmma_ss<64> with A read from registers instead.
+__device__ __forceinline__ void wgmma_rs_kb64(float* d, const uint32_t* a,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}"
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d));
+}
+
 // exp(x) = exp2(x * kLog2e): the kernels run their softmax in base 2
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
@@ -430,6 +545,31 @@ __device__ __forceinline__ void wg_frag(uint32_t* a, const float* x, int t) {
   a[1] = pack_bf16(x[8 * t + 2], x[8 * t + 3]);
   a[2] = pack_bf16(x[8 * t + 4], x[8 * t + 5]);
   a[3] = pack_bf16(x[8 * t + 6], x[8 * t + 7]);
+}
+
+// This thread's A fragment (wg_frag's layout) of k16 step kk of a [rows][D]
+// bf16 tile that TMA loaded (its boxes and swizzle, above), for the
+// warpgroup's warp `warp` and rows 16 warp .. 16 warp + 15: the swizzle
+// moves 16-byte chunk k of row r to chunk k ^ ((r SW / 128) mod (SW / 16)).
+// Held to wg_frag's layout on the card at the 64-byte swizzle (D 96) only:
+// at the 128-byte swizzle (D 64, 128, 256) the kernel that read its
+// fragments gave NaN, for a reason not found, so those head dims are
+// refused until one is.
+template <int D, int rows>
+__device__ __forceinline__ void load_afrag(uint32_t* a,
+                                           const unsigned char* tile,
+                                           int warp, int lane, int kk) {
+  constexpr int SW = Swizzle<D>::bytes, BC = SW / 2, CH = SW / 16;
+  static_assert(SW == 64, "load_afrag is checked at the 64-byte swizzle only");
+  const int g = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 4; ++h) {
+    const int r = 16 * warp + g + 8 * (h & 1);
+    const int c = 16 * kk + 2 * tq + 8 * (h >> 1);
+    const int chunk = ((c % BC) / 8) ^ ((r * SW / 128) % CH);
+    a[h] = *reinterpret_cast<const uint32_t*>(
+        tile + (c / BC) * rows * SW + r * SW + chunk * 16 + (c % 8) * 2);
+  }
 }
 
 // Shared memory of a kernel, rounded up to the 1024-byte alignment of the

@@ -147,11 +147,15 @@ def test_chip_smoke_watchdog_ends_a_hung_phase():
     (("bwd_dkv_f32", 64), (128, 256), False),   # F32_SPILLS, past them
     (("bwd_dkv_f32", 32), None, False),         # no report of it
     (("flash_fwd_wgmma_pair", 256), None, False),
+    (("bwd_dkv_wgmma_rows", 96), (16, 16), False),
+    (("bwd_dkv_wgmma_rows", 96), None, False),
+    (("flash_fwd_wgmma", 96), (8, 8), False),
 ])
 def test_chip_smoke_spill_check_reads_ptxas_reports(spilled, spills, ok):
-    """chip_smoke.py's build phase holds the two-warpgroup D-256 entries
-    and the float32 K2 and K4 at every head dim to no spill, but for
-    F32_SPILLS' instances (a few bytes), from the -Xptxas -v report; a
+    """chip_smoke.py's build phase holds the two-warpgroup entries (K2 and
+    K4 at D 256, K4 at D 96), K2 at D 96 (Q's fragments in registers) and
+    the float32 K2 and K4 at every head dim to no spill, but
+    for F32_SPILLS' instances (a few bytes), from the -Xptxas -v report; a
     report that lacks one of them fails too. No card needed."""
     import chip_smoke
 
@@ -165,6 +169,7 @@ def test_chip_smoke_spill_check_reads_ptxas_reports(spilled, spills, ok):
 
     dims = t_flash.KERNEL_HEAD_DIMS
     held = [(n, 256) for n in ("bwd_dkv_wgmma_pair", "flash_fwd_wgmma_pair")]
+    held += [("bwd_dkv_wgmma_rows", 96), ("flash_fwd_wgmma", 96)]
     held += [(n, d) for n in ("flash_fwd_f32", "bwd_dkv_f32") for d in dims]
     reports = {"flash_bwd": entry("bwd_dkv_wgmma", 256, 8, 16)}  # may spill
     for name, d in held:
@@ -180,17 +185,28 @@ def test_chip_smoke_spill_check_reads_ptxas_reports(spilled, spills, ok):
             chip_smoke.check_no_spill(reports)
 
 
-def test_chip_variants_apply_to_the_sources():
-    """Every variant of chip_variants.py changes text that the kernel
-    sources hold (no card needed)."""
+def _variant_names():
     import chip_variants
 
-    for name, (kernel, src, subs, dims) in chip_variants.VARIANTS.items():
-        with open(os.path.join(chip_variants.CSRC, src)) as f:
-            text = f.read()
-        assert kernel in chip_variants.ENTRIES and dims
-        for old, new in subs:
-            assert old in text and old != new, (name, old)
+    return sorted(chip_variants.VARIANTS)
+
+
+@pytest.mark.parametrize("name", _variant_names())
+def test_chip_variants_apply_to_the_sources(name):
+    """Each variant of chip_variants.py (the float32 K2/K4 ones, the bf16
+    K4's stages, grid order, K/V in shared memory and D 64/128 probe, and
+    the bf16 K2 with Q in shared memory) changes text that the kernel
+    sources hold, once, and times head dims the kernels take (no card
+    needed)."""
+    import chip_variants
+
+    kernel, src, subs, dims = chip_variants.VARIANTS[name]
+    with open(os.path.join(chip_variants.CSRC, src)) as f:
+        text = f.read()
+    assert kernel in chip_variants.ENTRIES and dims
+    assert set(dims) <= set(chip_variants.SHAPES)
+    for old, new in subs:
+        assert text.count(old) == 1 and old != new, (name, old)
 
 
 @pytest.mark.parametrize("shape,want", [
@@ -626,13 +642,14 @@ def test_flash_bwd_kernels_match_plain_on_card(dtype, d, case):
         assert (lse[0, 120:] == -1e30).all() and (dq[0, 120:] == 0).all()
 
 
-def _d256_inputs(rng, s, rep, case):
-    """bf16 q, k, v, do on the card at D 256 (2 kv heads, 2 * rep q heads,
-    B 2; k and v strided views of one fused tensor, as in training) and
-    the segment ids of a tile-edge case. "segments": packed rows where the
-    last q row of row 0 sees no kv row and, in row 1, kv rows ``unseen``
-    (a whole 64-row kv tile where s > 64) are seen by no q row."""
-    hkv, d = 2, 256
+def _tile_edge_inputs(rng, s, rep, case, d):
+    """bf16 q, k, v, do on the card at head dim d (2 kv heads, 2 * rep q
+    heads, B 2; k and v strided views of one fused tensor, as in training)
+    and the segment ids of a tile-edge case. "segments": packed rows where
+    the last q row of row 0 sees no kv row and, in row 1, kv rows
+    ``unseen`` (a whole 64-row kv tile where s > 64) are seen by no q
+    row."""
+    hkv = 2
     sq, sk = (s, s + 67) if case == "sq_lt_sk" else (s, s)
     segs, unseen = None, None
     if case == "segments":
@@ -653,21 +670,26 @@ def _d256_inputs(rng, s, rep, case):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("d", [96, 256])
 @pytest.mark.parametrize("case", ["causal", "sq_lt_sk", "segments"])
 @pytest.mark.parametrize("rep", [1, 2, 4])
 @pytest.mark.parametrize("s", [63, 64, 65, 127, 128, 129, 255, 257])
-def test_flash_kernels_at_d256_tile_edges_match_plain_on_card(case, rep, s):
-    """The bf16 D-256 designs (K2 over 128-row q tiles in two warpgroups,
-    K4 with S^T and dP^T exchanged between two warpgroups) and K3 at
-    lengths around the 64-row and 128-row tiles, GQA rep 1, 2 and 4, v a
-    strided view: causal, causal with Sq < Sk, and packed segments with a
-    fully masked q row and kv rows no q row sees; each output against its
-    plain version on the same inputs (lse from K2)."""
+def test_flash_kernels_at_d96_and_d256_tile_edges_match_plain_on_card(
+        case, rep, s, d):
+    """The bf16 two-warpgroup designs and K2 and K3 at lengths around the
+    64-row and 128-row tiles, GQA rep 1, 2 and 4, v a strided view:
+    causal, causal with Sq < Sk, and packed segments with a fully masked q
+    row and kv rows no q row sees; each output against its plain version
+    on the same inputs (lse from K2). At D 256: K2 over 128-row q tiles in
+    two warpgroups, K4 with S^T and dP^T exchanged between two
+    warpgroups. At D 96: K4 over 128-row kv tiles in two warpgroups whose
+    causal starts differ by one q tile, fed through a ring that the later
+    warpgroup refills at its turn."""
     _need_card()
     rng = np.random.default_rng(14)
-    q, k, v, do, segs, unseen = _d256_inputs(rng, s, rep, case)
+    q, k, v, do, segs, unseen = _tile_edge_inputs(rng, s, rep, case, d)
     kw = dict(causal=True, q_seg=None if segs is None else segs[0],
-              kv_seg=None if segs is None else segs[1], scale=256 ** -0.5)
+              kv_seg=None if segs is None else segs[1], scale=d ** -0.5)
     before = (t_flash.flash_attention.launches,
               t_flash.flash_attention.dq_launches,
               t_flash.flash_attention.dkv_launches)
