@@ -14,10 +14,10 @@ every thread's traceback and exit code 1.
    (UBLKCP) and mma.sync (HMMA) instructions; the bf16 K2, K3 and K4
    kernels must have HGMMA and UTMALDG, the bf16 K1 kernel a bulk copy and
    tensor-core instructions, and each has an instance at every head dim of
-   KERNEL_HEAD_DIMS (the two-warpgroup designs, K2 and K4 at D 256 and
-   K4 at D 96, and K2 at D 96, which holds Q's fragments in registers,
-   must spill nothing, as must the float32 K2 and K4 at every head dim
-   but F32_SPILLS');
+   KERNEL_HEAD_DIMS (DESIGN_ENTRIES', the designs of a head dim of its
+   own: K2, K3 and K4 at D 256 and K4 and K1 at D 96, and K2 at D 96,
+   which holds Q's fragments in registers, must spill nothing, as must
+   the float32 K2 and K4 at every head dim but F32_SPILLS');
 3. kernels: each kernel against its plain PyTorch version at Llama-3-8B
    shapes in bf16 (max error against a stated tolerance), with CUDA-event
    times of the kernel, the plain version and one PyTorch library call,
@@ -172,8 +172,9 @@ every thread's traceback and exit code 1.
    ShardedTrainer steps at each width (4 layers) in bf16 and float32,
    each held to the same steps with attention through the plain versions
    on the card. Rows "<kernel>_d<D>" (bf16, float32 under "f32") count
-   the launches of these served and trained runs, and name the bf16
-   design they time ("design"); K2's bf16 split-KV design at D 256 (Sq
+   the launches of these served and trained runs, name the bf16 design
+   they time ("design") and give K1's kernels' device time from the
+   profiler ("decode_us", "merge_us"); K2's bf16 split-KV design at D 256 (Sq
    1, Sk 528, the dense cache's decode) is timed beside its bound, SDPA
    and this tree's 64-row kernel ("tiles_ms") under "decode_bf16" of
    its row.
@@ -184,7 +185,7 @@ With `--parent DIR` (a directory holding an earlier commit's tree, for
 example unpacked by `git archive` into the ignored `_archive/`), phases
 3, 5b, 6 and head_dims also build that tree's paged_decode.cu, flash_fwd.cu
 and flash_bwd.cu and time its K1, K2, K3 and K4 on the same inputs, in
-turns with the current ones; head_dims prints whether K2-K4's outputs
+turns with the current ones; head_dims prints whether K1-K4's outputs
 equal the earlier tree's bit for bit.
 Then one JSON line of per-kernel numbers, and as the last line
 {"ok": true, "device": {...}}.
@@ -579,8 +580,9 @@ def check_sass(_build) -> None:
         for fn in fns:
             assert counts[fn]["HGMMA"] > 0 and counts[fn]["UTMALDG"] > 0, \
                 f"{fn} has no wgmma or no TMA load"
-    fns = [fn for fn in counts if "paged_decode_mma" in fn]
-    assert fns, "no paged_decode_mma entry function in the built libraries"
+    fns = [fn for fn in counts
+           if "paged_decode_mma" in fn or "paged_decode_mha" in fn]
+    assert fns, "no bf16 K1 entry function in the built libraries"
     for fn in fns:
         c = counts[fn]
         assert c["UBLKCP"] > 0 and c["HMMA"] + c["HGMMA"] > 0, \
@@ -588,27 +590,29 @@ def check_sass(_build) -> None:
     old = [fn for fn in counts if any(
         key in fn for key in ("flash_fwd_mma", "bwd_dq_mma", "bwd_dkv_mma"))]
     assert not old, f"an mma.sync design of K2, K3 or K4 remains: {old}"
-    # a bf16 instance of each kernel at every head dim the wrappers take;
-    # at D 256 K2 past 64 q rows and K4, and at D 96 K4, are the
-    # two-warpgroup designs
+    # a bf16 instance of each kernel at every head dim the wrappers take,
+    # DESIGN_ENTRIES' where a head dim has a design of its own
     for key in ("flash_fwd_wgmma", "bwd_dq_wgmma", "bwd_dkv_wgmma",
                 "paged_decode_mma"):
         for d in KERNEL_HEAD_DIMS:
-            name = TWO_WG_ENTRIES.get(d, {}).get(key, key)
+            name = DESIGN_ENTRIES.get(d, {}).get(key, key)
             assert any(f"{name}ILi{d}E" in fn for fn in counts), \
                 f"no {name}<{d}> in the built libraries"
-    for d in TWO_WG_ENTRIES:
+    for d in DESIGN_ENTRIES:
         assert any(f"flash_fwd_wgmmaILi{d}E" in fn for fn in counts), \
             f"no one-warpgroup K2 at D {d} (Sq <= 64) in the built libraries"
 
 
-# the two-warpgroup designs (bf16), by head dim: at D 256 K2 past 64 q
-# rows and K4, whose warpgroups exchange S^T's and dP^T's halves; at D 96
-# K4, each warpgroup owning 64 rows of a 128-row kv tile
-TWO_WG_ENTRIES = {
+# the bf16 designs of a head dim of their own, by head dim: at D 256 the
+# two-warpgroup K2 past 64 q rows, K3 and K4 (K3's and K4's warpgroups
+# exchange p and dS, or P^T and dS^T); at D 96 K4, each warpgroup owning
+# 64 rows of a 128-row kv tile, and K1, four warps sharing each split
+DESIGN_ENTRIES = {
     256: {"flash_fwd_wgmma": "flash_fwd_wgmma_pair",
+          "bwd_dq_wgmma": "bwd_dq_wgmma_pair",
           "bwd_dkv_wgmma": "bwd_dkv_wgmma_pair"},
-    96: {"bwd_dkv_wgmma": "bwd_dkv_wgmma_rows"}}
+    96: {"bwd_dkv_wgmma": "bwd_dkv_wgmma_rows",
+         "paged_decode_mma": "paged_decode_mha"}}
 
 
 # the one-warpgroup K2 holding Q's fragments in registers (fwd_q_regs in
@@ -629,7 +633,7 @@ F32_SPILL_BYTES = 128
 
 def check_no_spill(reports) -> None:
     """The -Xptxas -v reports: each entry function's spill stores and
-    loads; the two-warpgroup entries (D 256 and 96), the one-warpgroup K2
+    loads; DESIGN_ENTRIES' entries (D 256 and 96), the one-warpgroup K2
     at D 96 (Q's fragments in registers) and the float32 K2 and K4 at
     every head dim must spill nothing, but F32_SPILLS' instances, which
     may spill up to F32_SPILL_BYTES."""
@@ -646,7 +650,7 @@ def check_no_spill(reports) -> None:
             if m and fn is not None:
                 spills[fn] = (int(m.group(1)), int(m.group(2)))
                 fn = None
-    held = [(name, d) for d, names in TWO_WG_ENTRIES.items()
+    held = [(name, d) for d, names in DESIGN_ENTRIES.items()
             for name in names.values()]
     held += Q_REGS_ENTRIES
     held += [(name, d) for name in F32_ENTRIES for d in KERNEL_HEAD_DIMS]
@@ -663,9 +667,9 @@ def check_no_spill(reports) -> None:
 
 
 def profile_decode_kernels(torch, fn, calls: int = 20) -> dict:
-    """Device microseconds per call of K1's two kernels (the split pass
-    `paged_decode_mma` and the merge), from torch.profiler over `calls`
-    calls of fn."""
+    """Device microseconds per call of K1's two kernels (the split pass,
+    `paged_decode_mma` or at D 96 `paged_decode_mha`, and the merge), from
+    torch.profiler over `calls` calls of fn."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -3567,7 +3571,10 @@ HD_TRAIN_STEPS = 3
 
 def hd_decode_row(torch, flush, d, hq, hkv, dt):
     """K1 at head dim d (phase 3's ragged lengths, NaN outside the live
-    rows, pages of 16) against its plain version: its row."""
+    rows, pages of 16) against its plain version, timed in turns with
+    --parent's K1 (whether its output is the earlier tree's bit for bit is
+    logged), its two kernels' device time from the profiler ("decode_us",
+    "merge_us"): its row."""
     from ray_tpu_torch.ops.paged_attention import (
         paged_attention_decode, paged_attention_decode_plain, paged_write)
 
@@ -3597,11 +3604,19 @@ def hd_decode_row(torch, flush, d, hq, hkv, dt):
     ok = close_bf16(got, want) if dt == torch.bfloat16 else \
         err <= ATOL_HD_F32
     assert ok, f"K1 at D {d} ({dt}) disagrees: {err:.3e}"
+    if PARENT is not None:  # the earlier tree computes the same function
+        old = parent_decode(torch, q, pool, bt, lens, scale)
+        log(f"  earlier tree's K1 at D {d} {dt} against the current one, bit "
+            f"for bit: {bool(torch.equal(old, got))}; max|diff| "
+            f"{max_err(old, got):.3e}")
+    ms, parent_ms = timed(
+        lambda: paged_attention_decode(q, pool, bt, lens), flush,
+        PARENT and (lambda: parent_decode(torch, q, pool, bt, lens, scale)))
+    prof_us = profile_decode_kernels(
+        torch, lambda: paged_attention_decode(q, pool, bt, lens))
     size = 2 if dt == torch.bfloat16 else 4
     return dict(
-        max_abs_err=err, parent_ms=None,
-        ms=time_ms(lambda: paged_attention_decode(q, pool, bt, lens),
-                   flush=flush),
+        max_abs_err=err, parent_ms=parent_ms, ms=ms, **prof_us,
         plain_ms=time_ms(lambda: paged_attention_decode_plain(
             q, pool, bt, lens, scale=scale), iters=3, flush=flush),
         library_ms=None,
@@ -3781,7 +3796,7 @@ def check_head_dim_kernels(torch, flush):
                 "max_abs_err", "ms", "parent_ms", "plain_ms", "library_ms",
                 "bound_ms", "bound_by", "tflops", "bound_share")}
             rows[f"{kname}_d{d}"] = row
-        two = TWO_WG_ENTRIES.get(d, {})
+        two = DESIGN_ENTRIES.get(d, {})
         for kname, entry in (("paged_decode", "paged_decode_mma"),
                              ("flash_fwd", "flash_fwd_wgmma"),
                              ("flash_bwd_dq", "bwd_dq_wgmma"),

@@ -1,4 +1,4 @@
-"""Time variants of the K2 and K4 kernels beside the built ones.
+"""Time variants of the K1, K2, K3 and K4 kernels beside the built ones.
 
 Each variant is this tree's kernel source with one design constant
 changed: for the float32 K2 and K4, stages, blocks an SM and loop
@@ -6,7 +6,10 @@ unrolling; for the bf16 K4 at D 96 (bwd_dkv_wgmma_rows), the ring's
 stages, its grid order and K or V read from shared memory, and its
 design at D 64 and 128, where the built tree keeps the one-warpgroup
 kernel (a probe); for the bf16 K2 at D 96 (flash_fwd_wgmma), Q read from
-shared memory instead of registers. It is built by nvcc into
+shared memory instead of registers; for the bf16 K3 at D 256, the
+one-warpgroup kernel instead of the pair; for the bf16 K1 at D 96
+(paged_decode_mha), two warps sharing each split instead of four, and
+paged_decode_mma (one warp a split). It is built by nvcc into
 ``ray_tpu_torch/_build/variants/`` (its -Xptxas -v registers and spills
 printed), held to the built kernel on the same inputs (float32 within
 ATOL_HD_F32, bf16 within the kernel tolerance, and whether it is bit for
@@ -14,9 +17,10 @@ bit the built kernel's is printed), and timed in turns with it (built,
 variants, variants reversed, built: one round, repeated --rounds times;
 CUDA events, L2 flushed) at the shapes chip_smoke.py times the kernels:
 B 2 (B 4 at D 64), S 2048, causal, the head counts of the widths that
-have each head dim. Each kernel's mean over its windows is printed with
-the least and the most of them. The last line is one JSON object of the
-times. Needs a card; names select variants (default: all):
+have each head dim (K1: its head_dims phase's lengths and pages). Each
+kernel's mean over its windows is printed with the least and the most
+of them. The last line is one JSON object of the times. Needs a card;
+names select variants (default: all):
 
     python3 chip_variants.py [--rounds N] [NAME ...]
 """
@@ -88,9 +92,28 @@ VARIANTS = {
     "k2_q_smem_d96": ("K2 bf16", "flash_fwd.cu", [
         ("fwd_q_regs(int d) { return d == 96; }",
          "fwd_q_regs(int d) { return false; }")], (96,)),
+    # the bf16 K3 at D 256 in one warpgroup (bwd_dq_wgmma, the design
+    # bwd_dq_wgmma_pair replaced)
+    "k3_one_warpgroup_d256": ("K3 bf16", "flash_bwd.cu", [
+        ("dq_pair(int d) { return d == 256; }",
+         "dq_pair(int d) { return false; }")], (256,)),
+    # the bf16 K1 at D 96 (paged_decode_mha) with two warps sharing each
+    # split instead of four, and paged_decode_mma (one warp a split)
+    "k1_mha_two_warps": ("K1 bf16", "paged_decode.cu", [
+        ("kMhaWarps = 4;", "kMhaWarps = 2;")], (96,)),
+    "k1_mma_d96": ("K1 bf16", "paged_decode.cu", [
+        ("mha_design(int d) { return d == 96; }",
+         "mha_design(int d) { return false; }")], (96,)),
 }
+# the varied kernels' entry functions (regular expressions), for their
+# ptxas reports
 ENTRIES = {"K2": "flash_fwd_f32", "K4": "bwd_dkv_f32",
-           "K2 bf16": "flash_fwd_wgmma", "K4 bf16": "bwd_dkv_wgmma_rows"}
+           "K2 bf16": "flash_fwd_wgmma", "K4 bf16": "bwd_dkv_wgmma_rows",
+           "K3 bf16": "bwd_dq_wgmma(?:_pair)?",
+           "K1 bf16": "paged_decode_m[hm]a"}
+# K1's inputs as chip_smoke.py's head_dims phase times it: Phi-3-mini's
+# 32/32 heads, phase 3's lengths, pages of 16, NaN outside the live rows
+K1_LENGTHS = [0, 1, 15, 16, 17, 300, 1000, 2047]
 
 
 def build_variants(names):
@@ -120,13 +143,15 @@ def build_variants(names):
         fn = None
         for line in report.splitlines():
             if "Compiling entry function" in line:
-                m = re.search(rf"{entry}ILi(\d+)E", line)
-                fn = m and f"{entry}<{m.group(1)}>"
+                m = re.search(rf"({entry})ILi(\d+)E", line)
+                fn = m and f"{m.group(1)}<{m.group(2)}>"
             elif fn and ("spill" in line or "Used" in line):
                 cs.log(f"  {name} {fn}: {line.strip()}")
         libs[name] = ctypes.CDLL(lib)
-        for fn_name, argtypes in {**_build.SIGNATURES["flash_fwd"],
-                                  **_build.SIGNATURES["flash_bwd"]}.items():
+        for fn_name, argtypes in {
+                **_build.SIGNATURES["flash_fwd"],
+                **_build.SIGNATURES["flash_bwd"],
+                **_build.SIGNATURES["paged_decode"]}.items():
             if hasattr(libs[name], fn_name):
                 getattr(libs[name], fn_name).argtypes = argtypes
                 getattr(libs[name], fn_name).restype = ctypes.c_int
@@ -145,6 +170,81 @@ def call_k2(lib, q, k, v):
         torch.cuda.current_stream().cuda_stream)
     assert code == 0, f"flash_fwd: cudaError {code}"
     return o, lse
+
+
+def call_k3(lib, q, k, v, do, lse, delta):
+    b, sq, hq, d = q.shape
+    dq = torch.empty_like(q)
+    code = lib.flash_bwd_dq(
+        fa._DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), None, None,
+        dq.data_ptr(), b, sq, k.shape[1], hq, k.shape[2], d,
+        fa._strides(q, k, v, do), 1, d ** -0.5,
+        torch.cuda.current_stream().cuda_stream)
+    assert code == 0, f"flash_bwd_dq: cudaError {code}"
+    return (dq,)
+
+
+def call_k1(lib, q, pool, bt, lens):
+    b, hq, d = q.shape
+    _, hkv, page, _ = pool.shape
+    mp = bt.shape[1]
+    n_split = lib.paged_decode_splits(page, mp)
+    part_acc = torch.empty((b, hq, n_split, d), dtype=torch.float32,
+                           device=q.device)
+    part_ml = torch.empty((b, hq, n_split, 2), dtype=torch.float32,
+                          device=q.device)
+    out = torch.empty_like(q)
+    code = lib.paged_decode(
+        1, q.data_ptr(), pool.data_ptr(), bt.data_ptr(), lens.data_ptr(),
+        part_acc.data_ptr(), part_ml.data_ptr(), out.data_ptr(), b, hq, hkv,
+        d, page, mp, d ** -0.5, torch.cuda.current_stream().cuda_stream)
+    assert code == 0, f"paged_decode: cudaError {code}"
+    return (out,)
+
+
+def k1_inputs(d, hq, hkv, page=16, mp=128):
+    """K1's inputs at head dim d (K1_LENGTHS, bf16)."""
+    from ray_tpu_torch.ops.paged_attention import paged_write
+
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    b = len(K1_LENGTHS)
+    pool = torch.full((1 + b * mp, hkv, page, 2 * d), float("nan"),
+                      dtype=torch.bfloat16, device="cuda")
+    perm = torch.randperm(b * mp, generator=gen, device="cuda") + 1
+    bt = perm.reshape(b, mp).to(torch.int32)
+    lens = torch.tensor(K1_LENGTHS, dtype=torch.int32, device="cuda")
+    kd, vd = (torch.randn((b, mp * page, hkv, d), generator=gen,
+                          device="cuda").to(torch.bfloat16)
+              for _ in range(2))
+    paged_write(pool, kd, vd, bt,
+                torch.arange(mp * page, device="cuda").expand(b, -1), lens)
+    q = torch.randn((b, hq, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    return q, pool, bt, lens
+
+
+def compare_and_time(label, call, built, libs, group, rounds, flush, f32):
+    """Hold each variant of `group` to the built kernel, then time them in
+    turns; returns each one's mean ms."""
+    want = call(built)
+    for n in group:
+        got = call(libs[n])
+        err = max(cs.max_err(a, w) for a, w in zip(got, want))
+        same = all(torch.equal(a, w) for a, w in zip(got, want))
+        ok = (err <= cs.ATOL_HD_F32 if f32 else
+              all(cs.close_bf16(a, w) for a, w in zip(got, want)))
+        cs.log(f"  {n} {label}: max|variant - built| {err:.3e}, bit for "
+               f"bit {same}")
+        assert ok, f"{n} {label}: {err:.3e}"
+    order = [("built", built)] + [(n, libs[n]) for n in group]
+    t = {n: [] for n, _ in order}
+    for n, lib in (order + order[::-1]) * rounds:
+        t[n].append(cs.time_ms(lambda lib=lib: call(lib), flush=flush))
+    cs.log(f"{label} ({2 * rounds} windows): " + ", ".join(
+        f"{n} {sum(x) / len(x):.4f} ({min(x):.4f}-{max(x):.4f})"
+        for n, x in t.items()) + " ms")
+    return {n: sum(x) / len(x) for n, x in t.items()}
 
 
 def call_k4(lib, q, k, v, do, lse, delta):
@@ -180,13 +280,28 @@ def main() -> int:
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip().splitlines()[0]
     cs.log(smi)
-    _build.build_all(["flash_fwd", "flash_bwd"], force=True)
+    _build.build_all(["flash_fwd", "flash_bwd", "paged_decode"], force=True)
     built = {"K2": _build.library("flash_fwd"),
-             "K4": _build.library("flash_bwd")}
+             "K3": _build.library("flash_bwd"),
+             "K4": _build.library("flash_bwd"),
+             "K1": _build.library("paged_decode")}
     libs = build_variants(names)
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
     times = {}
-    for d in sorted({d for n in names for d in VARIANTS[n][3]}):
+    for d in sorted({d for n in names for d in VARIANTS[n][3]
+                     if VARIANTS[n][0] == "K1 bf16"}):
+        _, hq, hkv = SHAPES[d]
+        group = [n for n in names if VARIANTS[n][0] == "K1 bf16"
+                 and d in VARIANTS[n][3]]
+        q, pool, bt, lens = k1_inputs(d, hq, hkv)
+        times[f"K1_bf16_d{d}"] = compare_and_time(
+            f"K1 bfloat16 at D {d} (B {len(K1_LENGTHS)}, {hq}/{hkv} heads, "
+            f"pages of 16)", lambda lib: call_k1(lib, q, pool, bt, lens),
+            built["K1"], libs, group, rounds, flush, False)
+        del q, pool, bt, lens
+        torch.cuda.empty_cache()
+    for d in sorted({d for n in names for d in VARIANTS[n][3]
+                     if VARIANTS[n][0] != "K1 bf16"}):
         b, hq, hkv = SHAPES[d]
         for dt, suffix in ((torch.float32, ""), (torch.bfloat16, " bf16")):
             gen = torch.Generator(device="cuda").manual_seed(d)
@@ -198,35 +313,18 @@ def main() -> int:
             o, lse = call_k2(built["K2"], q, k, v)
             delta = fa.attention_delta(o, do)
             calls = {"K2": lambda lib: call_k2(lib, q, k, v),
+                     "K3": lambda lib: call_k3(lib, q, k, v, do, lse, delta),
                      "K4": lambda lib: call_k4(lib, q, k, v, do, lse, delta)}
             for kernel, call in calls.items():
                 group = [n for n in names if VARIANTS[n][0] == kernel + suffix
                          and d in VARIANTS[n][3]]
                 if not group:
                     continue
-                want = call(built[kernel])
-                for n in group:
-                    got = call(libs[n])
-                    err = max(cs.max_err(a, w) for a, w in zip(got, want))
-                    same = all(torch.equal(a, w) for a, w in zip(got, want))
-                    ok = (err <= cs.ATOL_HD_F32 if dt == torch.float32 else
-                          all(cs.close_bf16(a, w) for a, w in zip(got, want)))
-                    cs.log(f"  {n} at D {d}: max|variant - built| {err:.3e}, "
-                           f"bit for bit {same}")
-                    assert ok, f"{n} at D {d}: {err:.3e}"
-                order = [("built", built[kernel])] + [(n, libs[n])
-                                                      for n in group]
-                t = {n: [] for n, _ in order}
-                for n, lib in (order + order[::-1]) * rounds:
-                    t[n].append(cs.time_ms(lambda lib=lib: call(lib),
-                                           flush=flush))
-                row = {n: sum(x) / len(x) for n, x in t.items()}
-                times[f"{kernel}{suffix.replace(' ', '_')}_d{d}"] = row
-                cs.log(f"{kernel} {str(dt)[6:]} at D {d} (B {b}, {hq}/{hkv} "
-                       f"heads, S 2048, causal; {2 * rounds} windows): " +
-                       ", ".join(f"{n} {row[n]:.4f} ({min(x):.4f}-"
-                                 f"{max(x):.4f})" for n, x in t.items()) +
-                       " ms")
+                times[f"{kernel}{suffix.replace(' ', '_')}_d{d}"] = \
+                    compare_and_time(
+                        f"{kernel} {str(dt)[6:]} at D {d} (B {b}, {hq}/{hkv} "
+                        f"heads, S 2048, causal)", call, built[kernel], libs,
+                        group, rounds, flush, dt == torch.float32)
             del q, do, kv, k, v, o, lse, delta
             torch.cuda.empty_cache()
     print(json.dumps({"card": smi, "ms": times}), flush=True)

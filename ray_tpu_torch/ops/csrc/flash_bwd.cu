@@ -31,9 +31,10 @@
 // variants; at D 256 the float32 variants take 32-row tiles of their own
 // rows (shared memory), and the bf16 K4 is a block of two warpgroups, one
 // computing S^T and the other dP^T, each owning half of dK's and dV's
-// columns (registers); at D 96 the bf16 K4 is a block of two warpgroups
-// over a 128-row kv tile, each owning 64 of its rows (bwd_dkv_wgmma_rows):
-// see each kernel.
+// columns (registers), and so is the bf16 K3, one warpgroup computing S
+// and the other dP, each owning half of dQ's columns (bwd_dq_wgmma_pair);
+// at D 96 the bf16 K4 is a block of two warpgroups over a 128-row kv
+// tile, each owning 64 of its rows (bwd_dkv_wgmma_rows): see each kernel.
 // Two variants each, chosen by the input type, as in K2: an exact
 // scalar-FMA float32 variant (register tiles read as 16-byte shared loads,
 // their operands copied in flight by cp.async: see bwd_dq_f32 and
@@ -41,8 +42,9 @@
 // through an mbarrier ring, p and ds rounded to bf16 in registers as the
 // A operand of the next product, and every transposed operand read
 // MN-major through the descriptor, so no tile is copied transposed (see
-// bwd_dkv_wgmma, bwd_dkv_wgmma_pair, bwd_dkv_wgmma_rows and bwd_dq_wgmma).
-// Not done yet: K3 at D 96 and 256 redesigned; bwd_dkv_wgmma_rows' design
+// bwd_dkv_wgmma, bwd_dkv_wgmma_pair, bwd_dkv_wgmma_rows, bwd_dq_wgmma and
+// bwd_dq_wgmma_pair).
+// Not done yet: K3 at D 96 redesigned; bwd_dkv_wgmma_rows' design
 // at the other head dims (chip_variants.py probes it at D 64 and 128); one
 // fused kernel writing dq by atomics (FlashAttention-2's layout) instead
 // of two passes; two K3 float32 blocks an SM at D 96 and 128 (their tiles
@@ -1751,6 +1753,284 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
+// ---------------------------------------------------------------------
+// K3 for Hopper at D 256, bf16: bwd_dq_wgmma's tiles, loads and rounding
+// with one block of two warpgroups and a producer warp (288 threads) per
+// (64-row q tile, q head, batch row), in the manner of
+// bwd_dkv_wgmma_pair. What held the one-warpgroup kernel back at this
+// head dim: one block an SM (192 KB of tiles) whose one warpgroup ran
+// every step in series (S and dP as 32 k16 steps, wait, the dS pass on
+// 64 values a thread, dQ += dS K as 4 m64n256k16, wait, a block barrier,
+// then thread 0's refill) with 128 float32 dQ accumulators a thread.
+// Here, per kv tile:
+//   warpgroup 0 runs S = Q K^T and warpgroup 1 dP = dO V^T, each over the
+//     whole depth D, side by side;
+//   warpgroup 0 forms p (masked as bwd_dq_wgmma does, a template per
+//     case) and writes it in float32 to shared memory in the accumulator's
+//     own per-thread order (thread t of one warpgroup holds the same (row,
+//     column) positions as thread t of the other, so no swizzle is
+//     involved): 16 KB;
+//   warpgroup 1 reads it, forms dS = p (dP - delta) scale, and hands dS's
+//     bf16 A fragments back the same way: 8 KB;
+//   warpgroup w owns dQ's columns [128w, 128w + 128): dQ[:, cols] += dS
+//     K[:, cols] (wgmma_rs<128>, K MN-major from column 128w), 64
+//     accumulators a thread;
+//   once both are done with the stage they arrive on named barrier 3, on
+//     which the producer warp waits alone and refills the stage, its
+//     lanes issuing the tile's TMA boxes side by side: no warpgroup waits
+//     at the end of a tile or spends the TMA's issue there (a refill by
+//     warpgroup 0's thread 0 after a barrier of both took about 950 of a
+//     tile's 3,224 cycles: clock64 stamps, PERF.md).
+// Named barriers 1 "p written" and 2 "dS written" order the exchange, 4
+// warpgroup 0's staging of the next tile's segment ids before their use.
+// Every load is predicated, never branched around: a branch that some
+// threads of a warpgroup skip made ptxas serialise every wgmma of a
+// function. p and dS are rounded where bwd_dq_wgmma rounds them, each
+// product is the same wgmma on the same values, and each column's sum
+// keeps its order of k16 steps, so dQ equals that kernel's bit for bit.
+// Shared memory: bwd_dq_wgmma's 197,144 bytes and the 24 KB exchange,
+// one block an SM.
+__host__ __device__ constexpr bool dq_pair(int d) { return d == 256; }
+constexpr int kDqPairThreads = 2 * kWgThreads + 32;  // and a producer warp
+
+template <int D>
+struct DqPairSmem : DqSmem<D> {  // DqSmem's tiles, then the exchange
+  static constexpr int pt = (DqSmem<D>::bytes + 15) / 16 * 16;
+  static constexpr int ds = pt + 32 * kWgThreads * 4;     // [32][128] float
+  static constexpr int bytes = ds + 16 * kWgThreads * 4;  // [16][128] u32
+};
+static_assert(DqPairSmem<256>::bytes + kSmemSlack <= 232448,
+              "K3's two-warpgroup shared memory");
+
+// p = exp2(s scale log2(e) - lse log2(e)) on this thread's 32 accumulators
+// of S (q rows qpos[0], qpos[1], kv columns k0 + 8j + 2tq + e), zeroed for
+// a masked pair without taking its exp: bwd_dq_wgmma's expressions, with
+// the mask chosen per tile by template
+template <bool kMask>
+__device__ __forceinline__ void probs_q(float* x, const BwdParams& p, int k0,
+                                        const int* qpos, const int* qs,
+                                        const int* ks, const float* lse2,
+                                        int tq, float scale_log2) {
+  const int offset = p.sk - p.sq;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * j + 2 * tq + e, idx = 4 * j + 2 * rr + e;
+        bool keep = true;
+        if (kMask) {
+          const int kpos = k0 + c;
+          keep = kpos < p.sk;
+          if (p.causal) keep = keep && kpos <= qpos[rr] + offset;
+          if (p.kseg != nullptr) keep = keep && ks[c] == qs[rr];
+        }
+        x[idx] = keep ? exp2f(x[idx] * scale_log2 - lse2[rr]) : 0.f;
+      }
+}
+
+// Warpgroup WG's half of bwd_dq_wgmma_pair's work. WG is a template
+// parameter, so no branch or descriptor below depends on the warpgroup at
+// run time.
+template <int D, int WG>
+__device__ __forceinline__ void dq_pair_cols(unsigned char* smem,
+                                             const BwdParams& p, int b,
+                                             int h, int q0, int n_kb) {
+  using L = DqPairSmem<D>;
+  constexpr int NC = D / 2;   // this warpgroup's columns of dq
+  constexpr int NO = NC / 2;  // dq accumulators per thread
+  constexpr int KK = D / 16;
+  constexpr int kPair = 2 * kWgThreads;  // threads of a named barrier
+  constexpr int col0 = WG * NC;
+  const int t = threadIdx.x % kWgThreads;
+  const int warp = t / 32, lane = t % 32;
+  const int g = lane >> 2, tq = lane & 3;
+  const float scale_log2 = p.scale * kLog2e;
+  // warpgroup 0: S = Q K^T; warpgroup 1: dP = dO V^T
+  const unsigned char* a_s = smem + (WG == 0 ? L::q : L::dout);
+  const unsigned char* b_s = smem + (WG == 0 ? L::k : L::v);
+  const unsigned char* k_s = smem + L::k;
+  int* kseg_s = reinterpret_cast<int*>(smem + L::kseg);
+  float* pt_s = reinterpret_cast<float*>(smem + L::pt);
+  uint32_t* ds_s = reinterpret_cast<uint32_t*>(smem + L::ds);
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* full = qbar + 1;
+
+  // this thread's two rows: q0 + 16 warp + g and 8 below (loads clamped
+  // in bounds and selected, not branched)
+  int qpos[2], qs[2];
+  float lse2[2], delta[2];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    qpos[rr] = q0 + warp * 16 + g + 8 * rr;
+    const bool in = qpos[rr] < p.sq;
+    const size_t ri = row_index(p, b, min(qpos[rr], p.sq - 1), h);
+    lse2[rr] = in ? p.lse[ri] * kLog2e : 0.f;
+    delta[rr] = in ? p.delta[ri] : 0.f;
+    qs[rr] = p.qseg != nullptr
+                 ? p.qseg[(size_t)b * p.sq + min(qpos[rr], p.sq - 1)] : 0;
+  }
+  float acc[NO], x[32];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) x[i] = 0.f;
+  mbar_wait(qbar, 0);
+
+  for (int kb = 0; kb < n_kb; ++kb) {
+    const int st = kb % kStages, k0 = kb * kBK;
+    const unsigned char* kt = k_s + st * L::tile;
+    mbar_wait(&full[st], (kb / kStages) & 1);
+
+    // x = S (warpgroup 0) or dP (warpgroup 1)
+    const unsigned char* bt = b_s + st * L::tile;
+    wgmma_fence();
+    fence_regs<32>(x);
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk)
+      wgmma_ss<64>(x, desc_kmajor<D, kBQ>(a_s, kk),
+                   desc_kmajor<D, kBK>(bt, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<32>(x);
+
+    uint32_t da[4][4];  // A fragments of dS
+    if (WG == 0) {  // p over S, to the other warpgroup; dS back
+      const int* ks = kseg_s + (kb & 1) * kBK;
+      if (p.kseg != nullptr || k0 + kBK > p.sk ||
+          (p.causal && k0 + kBK - 1 > q0 + (p.sk - p.sq)))
+        probs_q<true>(x, p, k0, qpos, qs, ks, lse2, tq, scale_log2);
+      else
+        probs_q<false>(x, p, k0, qpos, qs, ks, lse2, tq, scale_log2);
+#pragma unroll
+      for (int idx = 0; idx < 32; ++idx) pt_s[idx * kWgThreads + t] = x[idx];
+      named_arrive(1, kPair);
+      named_sync(2, kPair);
+#pragma unroll
+      for (int j = 0; j < 16; ++j) da[j / 4][j % 4] = ds_s[j * kWgThreads + t];
+    } else {  // dS over dP and the other warpgroup's p, and back
+      named_sync(1, kPair);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int idx = 4 * j + 2 * rr + e;
+            x[idx] = pt_s[idx * kWgThreads + t] * (x[idx] - delta[rr]) *
+                     p.scale;
+          }
+#pragma unroll
+      for (int tt = 0; tt < kBK / 16; ++tt) wg_frag(da[tt], x, tt);
+#pragma unroll
+      for (int j = 0; j < 16; ++j) ds_s[j * kWgThreads + t] = da[j / 4][j % 4];
+      named_arrive(2, kPair);
+    }
+
+    // dQ[:, cols] += dS K[:, cols]: dS from registers, K MN-major
+    wgmma_fence();
+    fence_regs<NO>(acc);
+#pragma unroll
+    for (int tt = 0; tt < kBK / 16; ++tt)
+      wgmma_rs<NC>(acc, da[tt], desc_mnmajor<D, kBK>(kt, tt, col0), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<NO>(acc);
+
+    if (WG == 0) {  // the next tile's segment ids (threads t and t + 64
+                    // write the same value), staged before any reads them
+      if (p.kseg != nullptr && kb + 1 < n_kb) {
+        const int kpos = k0 + kBK + (t & (kBK - 1));
+        const int id = p.kseg[(size_t)b * p.sk + min(kpos, p.sk - 1)];
+        kseg_s[((kb + 1) & 1) * kBK + (t & (kBK - 1))] =
+            kpos < p.sk ? id : 0;
+      }
+      named_sync(4, kWgThreads);
+    }
+    named_arrive(3, kDqPairThreads);  // done with stage st
+  }
+
+  bf16* dq = static_cast<bf16*>(p.dq);
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    if (qpos[rr] >= p.sq) continue;
+    bf16* row = dq + row_index(p, b, qpos[rr], h) * D;
+#pragma unroll
+    for (int j = 0; j < NC / 8; ++j)
+      *reinterpret_cast<uint32_t*>(row + col0 + j * 8 + tq * 2) =
+          pack_bf16(acc[4 * j + 2 * rr], acc[4 * j + 2 * rr + 1]);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kDqPairThreads, 1)
+bwd_dq_wgmma_pair(const __grid_constant__ CUtensorMap qmap,
+                  const __grid_constant__ CUtensorMap kmap,
+                  const __grid_constant__ CUtensorMap vmap,
+                  const __grid_constant__ CUtensorMap omap, BwdParams p,
+                  int B) {
+  using L = DqPairSmem<D>;
+  const int n_qt = (p.sq + kBQ - 1) / kBQ;
+  // heaviest first: under causal masking the last q tiles see most kv
+  const int qt = n_qt - 1 - (int)(blockIdx.x / (p.hq * B));
+  const int rest = blockIdx.x % (p.hq * B);
+  const int h = rest % p.hq, b = rest / p.hq;
+  const int hk = h / (p.hq / p.hkv);
+  const int tid = threadIdx.x;
+  const int q0 = qt * kBQ;
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_smem(smem_raw);
+  unsigned char* k_s = smem + L::k;
+  unsigned char* v_s = smem + L::v;
+  int* kseg_s = reinterpret_cast<int*>(smem + L::kseg);
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* full = qbar + 1;
+
+  const int n_kb = kv_tiles(p, q0);
+  // kv tile kb into stage st where `on`, by the calling warp: lane c
+  // loads K's box c, lane NB + c V's (the boxes issued side by side, not
+  // one after another by one thread)
+  constexpr int BC = swizzle_bytes(D) / 2, NB = D / BC;  // boxes a tile
+  static_assert(2 * NB <= 32, "a lane a box");
+  auto refill = [&](bool on, int kb, int st, int lane) {
+    mbar_expect_tx_if(on && lane == 0, &full[st], 2 * L::tile);
+    const bool is_v = lane >= NB;
+    const int c = is_v ? lane - NB : lane;
+    tma_load_4d_if(on && lane < 2 * NB,
+                   (is_v ? v_s : k_s) + st * L::tile + c * kBK * BC * 2,
+                   is_v ? &vmap : &kmap, &full[st], c * BC, hk, kb * kBK, b);
+  };
+  if (tid == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < kStages; ++s) mbar_init(&full[s], 1);
+    mbar_fence_init();
+    mbar_expect_tx(qbar, 2 * L::tile);
+    tma_load_tile<D, kBQ>(smem + L::q, &qmap, qbar, q0, h, b);
+    tma_load_tile<D, kBQ>(smem + L::dout, &omap, qbar, q0, h, b);
+  }
+  if (tid < 32) {  // warp 0: the first stages
+    __syncwarp();
+    for (int s = 0; s < kStages && s < n_kb; ++s) refill(true, s, s, tid);
+  }
+  if (p.kseg != nullptr && tid < kBK)
+    kseg_s[tid] = tid < p.sk ? p.kseg[(size_t)b * p.sk + tid] : 0;
+  __syncthreads();  // barriers initialised, first segment ids staged
+
+  if (tid < kWgThreads) {
+    dq_pair_cols<D, 0>(smem, p, b, h, q0, n_kb);
+  } else if (tid < 2 * kWgThreads) {
+    dq_pair_cols<D, 1>(smem, p, b, h, q0, n_kb);
+  } else {  // the producer warp: each tile's stage, once both warpgroups
+            // are done with it
+    for (int kb = 0; kb < n_kb; ++kb) {
+      named_sync(3, kDqPairThreads);
+      refill(kb + kStages < n_kb, kb + kStages, kb % kStages, tid % 32);
+    }
+  }
+}
+
 template <int D>
 int launch_dq_wgmma(const BwdParams& p, int B, cudaStream_t stream) {
   CUtensorMap qm, km, vm, om;
@@ -1763,11 +2043,20 @@ int launch_dq_wgmma(const BwdParams& p, int B, cudaStream_t stream) {
     err = make_map(&om, p.dout, B, p.sq, p.hq, D, p.o_sb, p.o_ss, p.o_sh,
                    kBQ);
   if (err != 0) return err;
-  const int smem = DqSmem<D>::bytes + kSmemSlack;
-  cudaFuncSetAttribute(bwd_dq_wgmma<D>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   const int blocks = (p.sq + kBQ - 1) / kBQ * p.hq * B;
-  bwd_dq_wgmma<D><<<blocks, kWgThreads, smem, stream>>>(qm, km, vm, om, p, B);
+  if constexpr (dq_pair(D)) {
+    const int smem = DqPairSmem<D>::bytes + kSmemSlack;
+    cudaFuncSetAttribute(bwd_dq_wgmma_pair<D>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    bwd_dq_wgmma_pair<D><<<blocks, kDqPairThreads, smem, stream>>>(
+        qm, km, vm, om, p, B);
+  } else {
+    const int smem = DqSmem<D>::bytes + kSmemSlack;
+    cudaFuncSetAttribute(bwd_dq_wgmma<D>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    bwd_dq_wgmma<D><<<blocks, kWgThreads, smem, stream>>>(qm, km, vm, om, p,
+                                                          B);
+  }
   return (int)cudaGetLastError();
 }
 

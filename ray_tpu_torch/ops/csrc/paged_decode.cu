@@ -48,9 +48,13 @@
 //   - float32 (the exact reference path of the tests) keeps the scalar
 //     kernel: 256 threads stage 64-row chunks by 16-byte loads and run
 //     the products on the CUDA cores.
-// Not done yet: folding the merge into the last block of each (sequence,
-// kv head) by an atomic counter (one launch fewer); several warps per
-// block sharing one split's pages.
+// At D 96 (Phi-3-mini's 32/32 heads) bf16 takes paged_decode_mha: four
+// warps a block share each split's pages and steps (see there).
+// Not done yet: that design at the other head dims; a merge folded into
+// the last split by an atomic count (one launch fewer: measured slower
+// than the merge kernel in every design that tried it, PERF.md PR 18);
+// the products of rep 1 on the CUDA cores instead of an mma whose A holds
+// one live q head of 16 rows.
 // The wrapper guarantees 2*D*sizeof(T) is a multiple of 16 bytes and a
 // 16-byte aligned pool.
 #include "hopper.cuh"
@@ -256,6 +260,70 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, uint32_t addr) {
 // step rows 8 j + 2 t, + 1: packed to bf16 it is the B fragment of P^T
 // (b0 from tile 0, b1 from tile 1). O^T's accumulator holds head dims
 // 16 dt + g (+ 8) of the group's q heads 2 t, 2 t + 1.
+// decode_step is one warp's step r0 of a split's `rows` live rows: lane
+// l's address `addr` as above (a zero row past `rows`); the online softmax
+// of head g keeps (m, l) in base 2.
+template <int D>
+__device__ __forceinline__ void decode_step(float (*acc)[4], float& m,
+                                            float& l,
+                                            const uint32_t (*qa)[2],
+                                            uint32_t addr, int r0, int rows,
+                                            int lane, float scale_log2) {
+  const int t = lane & 3;
+  // S = q K^T: heads g (and g + 8, zero) x the step's 16 rows
+  float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t kf[4];
+    ldsm_x4(kf, addr + 32 * kk);
+    const uint32_t a[4] = {qa[kk][0], 0u, qa[kk][1], 0u};
+    mma_bf16(s[0], a, kf[0], kf[1]);
+    mma_bf16(s[1], a, kf[2], kf[3]);
+  }
+
+  // online softmax of head g over rows 8 j + 2 t + e
+  float mx = NEG_INF_F;
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const bool live = r0 + 8 * j + 2 * t + e < rows;
+      s[j][e] = live ? s[j][e] * scale_log2 : NEG_INF_F;
+      mx = fmaxf(mx, s[j][e]);
+    }
+  mx = group_max<4>(mx);  // finite: row r0 is live
+  const float m_new = fmaxf(m, mx);
+  float sum = 0.f;
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      s[j][e] = s[j][e] == NEG_INF_F ? 0.f : exp2f(s[j][e] - m_new);
+      sum += s[j][e];
+    }
+  sum = group_sum<4>(sum);
+  const float alpha = exp2f(m - m_new);
+  l = l * alpha + sum;
+  m = m_new;
+  // O^T's columns are heads 2 t, 2 t + 1: their rescale factors
+  const float a0 = __shfl_sync(0xffffffffu, alpha, 8 * t);
+  const float a1 = __shfl_sync(0xffffffffu, alpha, 8 * t + 4);
+
+  // O^T += V^T P^T, P rounded to bf16
+  const uint32_t pb0 = pack_bf16(s[0][0], s[0][1]);
+  const uint32_t pb1 = pack_bf16(s[1][0], s[1][1]);
+#pragma unroll
+  for (int dt = 0; dt < D / 16; ++dt) {
+    uint32_t vf[4];
+    ldsm_x4_trans(vf, addr + D * 2 + 32 * dt);
+    acc[dt][0] *= a0;
+    acc[dt][1] *= a1;
+    acc[dt][2] *= a0;
+    acc[dt][3] *= a1;
+    mma_bf16(acc[dt], vf, pb0, pb1);
+  }
+}
+
 template <int D>
 __global__ void __launch_bounds__(32)
 paged_decode_mma(const bf16* __restrict__ q,       // [B, Hq, D]
@@ -339,60 +407,8 @@ paged_decode_mma(const bf16* __restrict__ q,       // [B, Hq, D]
         row < rows ? smem + ((row / page) % n_slots) * page_bytes +
                          (row % page) * RS
                    : zero_row;
-    const uint32_t addr = smem_addr(rp) + lcol;
-
-    // S = q K^T: heads g (and g + 8, zero) x the step's 16 rows
-    float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t kf[4];
-      ldsm_x4(kf, addr + 32 * kk);
-      const uint32_t a[4] = {qa[kk][0], 0u, qa[kk][1], 0u};
-      mma_bf16(s[0], a, kf[0], kf[1]);
-      mma_bf16(s[1], a, kf[2], kf[3]);
-    }
-
-    // online softmax of head g over rows 8 j + 2 t + e
-    float mx = NEG_INF_F;
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const bool live = r0 + 8 * j + 2 * t + e < rows;
-        s[j][e] = live ? s[j][e] * scale_log2 : NEG_INF_F;
-        mx = fmaxf(mx, s[j][e]);
-      }
-    mx = group_max<4>(mx);  // finite: row r0 is live
-    const float m_new = fmaxf(m, mx);
-    float sum = 0.f;
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        s[j][e] = s[j][e] == NEG_INF_F ? 0.f : exp2f(s[j][e] - m_new);
-        sum += s[j][e];
-      }
-    sum = group_sum<4>(sum);
-    const float alpha = exp2f(m - m_new);
-    l = l * alpha + sum;
-    m = m_new;
-    // O^T's columns are heads 2 t, 2 t + 1: their rescale factors
-    const float a0 = __shfl_sync(0xffffffffu, alpha, 8 * t);
-    const float a1 = __shfl_sync(0xffffffffu, alpha, 8 * t + 4);
-
-    // O^T += V^T P^T, P rounded to bf16
-    const uint32_t pb0 = pack_bf16(s[0][0], s[0][1]);
-    const uint32_t pb1 = pack_bf16(s[1][0], s[1][1]);
-#pragma unroll
-    for (int dt = 0; dt < D / 16; ++dt) {
-      uint32_t vf[4];
-      ldsm_x4_trans(vf, addr + D * 2 + 32 * dt);
-      acc[dt][0] *= a0;
-      acc[dt][1] *= a1;
-      acc[dt][2] *= a0;
-      acc[dt][3] *= a1;
-      mma_bf16(acc[dt], vf, pb0, pb1);
-    }
+    decode_step<D>(acc, m, l, qa, smem_addr(rp) + lcol, r0, rows, lane,
+                   scale_log2);
 
     // hand on the slots of the pages this step finished
     __syncwarp();
@@ -457,18 +473,185 @@ paged_decode_merge_kernel(const float* __restrict__ part_acc,
   }
 }
 
+// ---------------------------------------------------------------------
+// bf16 at D 96 (Phi-3-mini's 32/32 heads): paged_decode_mha, kMhaWarps
+// warps a block sharing one split of (kv head and group blockIdx.x,
+// sequence blockIdx.y), split blockIdx.z: paged_decode_mma's grid and
+// partials, its merge kernel after it. What held paged_decode_mma back
+// there: one warp walked its split's ~64 rows in four 16-row steps one
+// after another (at rep 1 each step's mma carries one live q head), and
+// its ring held the split's pages until the last step. Here:
+//   - the split's pages all land at once in the block's slots (the whole
+//     split fits: 25,600 bytes at pages of 8 and 16, 51,200 at 32), each
+//     page on its own mbarrier, the block's threads issuing one row copy
+//     each (paged_decode_mma's bulk copies into padded rows);
+//   - warp w takes steps w, w + kMhaWarps, ... (decode_step, so each step
+//     is paged_decode_mma's arithmetic) and waits only for their pages:
+//     at pages of 16 one step, one page a warp;
+//   - the warps' (m, l, O^T) meet in shared memory over the slots and are
+//     combined by their log-sum-exp into the split's one partial.
+// Designs measured against it and left out of the tree (PERF.md, PR 18):
+// blocks that walk only the live splits (one or two page buffers), the
+// merge folded into the last live split by an atomic count (in this
+// design and in those), one split a warp with four warps a block, and two
+// or eight warps a split.
+constexpr int kMhaWarps = 4;
+// the head dims that take this design (bf16)
+__host__ __device__ constexpr bool mha_design(int d) { return d == 96; }
+
+// the block's shared memory: the split's page slots (which the warps' O^T
+// reuse), a zero row, a barrier a page
+inline int mha_slot_bytes(int page, int d, int split_pages) {
+  const int pages = split_pages * page * (4 * d + kRowPad);
+  return (max(pages, kMhaWarps * kGroupHeads * d * 4) + 15) / 16 * 16;
+}
+
+template <int D>
+__global__ void __launch_bounds__(32 * kMhaWarps)
+paged_decode_mha(const bf16* __restrict__ q,       // [B, Hq, D]
+                 const bf16* __restrict__ pool,    // [P, Hkv, page, 2D]
+                 const int* __restrict__ bt,       // [B, MP]
+                 const int* __restrict__ lens,     // [B]
+                 float* __restrict__ part_acc,     // [B, Hq, splits, D]
+                 float* __restrict__ part_ml,      // [B, Hq, splits, 2]
+                 int hq, int hkv, int page, int mp, int split_pages,
+                 int slot_bytes, float scale_log2) {
+  constexpr int RB = 2 * D * 2;     // bytes of a pool row (K | V)
+  constexpr int RS = RB + kRowPad;  // a row's stride in a slot
+  constexpr int NT = 32 * kMhaWarps;
+  const int rep = hq / hkv, groups = (rep + kGroupHeads - 1) / kGroupHeads;
+  const int h = blockIdx.x / groups, b = blockIdx.y;
+  // the group's first q head and its number of heads
+  const int head0 = h * rep + blockIdx.x % groups * kGroupHeads;
+  const int n_heads = min(kGroupHeads, h * rep + rep - head0);
+  const int split = blockIdx.z, n_split = gridDim.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int len = min(lens[b], mp * page);  // a block table bounds a sequence
+  const int p_begin = split * split_pages;
+  const int n_pages = min((len + page - 1) / page - p_begin, split_pages);
+  if (n_pages <= 0) return;  // past the sequence's end: no work
+  const int rows = min(len - p_begin * page, split_pages * page);  // live
+  const int page_bytes = page * RS;
+
+  // [split_pages][page][RS] page slots, then the warps' O^T; a zero row;
+  // a barrier a page
+  extern __shared__ __align__(16) unsigned char slots[];
+  unsigned char* zero_row = slots + slot_bytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(zero_row + RB);
+  float* o_s = reinterpret_cast<float*>(slots);  // [warps][group][D]
+  __shared__ float ml_s[kMhaWarps][kGroupHeads][2];  // a warp's (m, l)
+  const bf16* pool_h = pool + (size_t)h * page * 2 * D;
+  const size_t pool_page = (size_t)hkv * page * 2 * D;  // elements
+  const int* pages = bt + (size_t)b * mp + p_begin;
+  if (tid < n_pages) {  // page tid's barrier, armed with its live rows
+    mbar_init(&full[tid], 1);
+    mbar_fence_init();
+    mbar_expect_tx(&full[tid], min(page, rows - tid * page) * RB);
+  }
+  for (int i = tid; i < RB / 16; i += NT)
+    reinterpret_cast<uint4*>(zero_row)[i] = make_uint4(0u, 0u, 0u, 0u);
+  __syncthreads();
+  for (int r = tid; r < rows; r += NT)  // every live row, one copy each
+    bulk_load(slots + (r / page) * page_bytes + (r % page) * RS,
+              pool_h + (size_t)pages[r / page] * pool_page +
+                  (size_t)(r % page) * 2 * D,
+              RB, &full[r / page]);
+
+  // the group's q heads g (< n_heads) as the A operand, rows g + 8 zero
+  uint32_t qa[D / 16][2];
+  const bf16* q_row =
+      q + ((size_t)b * hq + head0 + min(g, n_heads - 1)) * D;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    qa[kk][0] = g < n_heads ? *reinterpret_cast<const uint32_t*>(
+                                  q_row + 16 * kk + 2 * t) : 0u;
+    qa[kk][1] = g < n_heads ? *reinterpret_cast<const uint32_t*>(
+                                  q_row + 16 * kk + 2 * t + 8) : 0u;
+  }
+  float acc[D / 16][4];
+#pragma unroll
+  for (int dt = 0; dt < D / 16; ++dt)
+    acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
+  float m = NEG_INF_F, l = 0.f;  // of q head g, in base 2
+  const int lrow = (lane & 7) + 8 * (lane >> 4);
+  const int lcol = 16 * ((lane >> 3) & 1);  // bytes
+  for (int r0 = 16 * warp; r0 < rows; r0 += 16 * kMhaWarps) {
+    const int last = min(r0 + 15, rows - 1) / page;
+    for (int i = r0 / page; i <= last; ++i) mbar_wait(&full[i], 0);
+    const int row = r0 + lrow;
+    const unsigned char* rp =
+        row < rows ? slots + (row / page) * page_bytes + (row % page) * RS
+                   : zero_row;
+    decode_step<D>(acc, m, l, qa, smem_addr(rp) + lcol, r0, rows, lane,
+                   scale_log2);
+  }
+  // every live row is in some step, so every copy has landed once every
+  // warp is past here: the slots take the warps' O^T
+  __syncthreads();
+#pragma unroll
+  for (int dt = 0; dt < D / 16; ++dt)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int head = 2 * t + (c & 1), e = 16 * dt + g + 8 * (c >> 1);
+      o_s[(warp * kGroupHeads + head) * D + e] = acc[dt][c];
+    }
+  if (t == 0) {
+    ml_s[warp][g][0] = m;
+    ml_s[warp][g][1] = l;
+  }
+  __syncthreads();
+  // the split's partial (a warp without a step has m = NEG_INF_F, l = 0:
+  // weight 0): acc unnormalised, (m, l) in base e
+  const size_t part = ((size_t)b * hq + head0) * n_split + split;
+  for (int i = tid; i < n_heads * D; i += NT) {
+    const int hh = i / D, e = i % D;
+    float mw = NEG_INF_F;
+#pragma unroll
+    for (int w = 0; w < kMhaWarps; ++w) mw = fmaxf(mw, ml_s[w][hh][0]);
+    float lw = 0.f, aw = 0.f;
+#pragma unroll
+    for (int w = 0; w < kMhaWarps; ++w) {
+      const float wt = exp2f(ml_s[w][hh][0] - mw);
+      lw += ml_s[w][hh][1] * wt;
+      aw += o_s[(w * kGroupHeads + hh) * D + e] * wt;
+    }
+    const size_t idx = part + (size_t)hh * n_split;
+    part_acc[idx * D + e] = aw;
+    if (e == 0) {
+      part_ml[idx * 2] = mw * kLn2;
+      part_ml[idx * 2 + 1] = lw;
+    }
+  }
+}
+
 template <int D>
 int launch_mma(const void* q, const void* pool, const void* bt,
                const void* lens, void* part_acc, void* part_ml, int B,
                int hq, int hkv, int page, int mp, int n_split, float scale,
                cudaStream_t stream) {
+  const int rep = hq / hkv;
+  dim3 grid(hkv * ((rep + kGroupHeads - 1) / kGroupHeads), B, n_split);
+  if constexpr (mha_design(D)) {
+    const int sp = split_pages_for(page);
+    const int slot_bytes = mha_slot_bytes(page, D, sp);
+    const int smem = slot_bytes + 4 * D + sp * 8;
+    if (smem > 232448 - 1024)  // 1 KB of static shared memory
+      return (int)cudaErrorInvalidValue;  // page too large
+    cudaFuncSetAttribute(paged_decode_mha<D>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    paged_decode_mha<D><<<grid, 32 * kMhaWarps, smem, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(pool),
+        static_cast<const int*>(bt), static_cast<const int*>(lens),
+        static_cast<float*>(part_acc), static_cast<float*>(part_ml), hq,
+        hkv, page, mp, sp, slot_bytes, scale * kLog2e);
+    return (int)cudaGetLastError();
+  }
   const int slots = ring_slots_for(page, D);
   const int smem = slots * page * (4 * D + kRowPad) + 4 * D + slots * 8;
   if (smem > 232448) return (int)cudaErrorInvalidValue;  // page too large
   cudaFuncSetAttribute(paged_decode_mma<D>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  const int rep = hq / hkv;
-  dim3 grid(hkv * ((rep + kGroupHeads - 1) / kGroupHeads), B, n_split);
   paged_decode_mma<D><<<grid, 32, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(pool),
       static_cast<const int*>(bt), static_cast<const int*>(lens),

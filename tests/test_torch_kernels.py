@@ -150,10 +150,15 @@ def test_chip_smoke_watchdog_ends_a_hung_phase():
     (("bwd_dkv_wgmma_rows", 96), (16, 16), False),
     (("bwd_dkv_wgmma_rows", 96), None, False),
     (("flash_fwd_wgmma", 96), (8, 8), False),
+    (("bwd_dq_wgmma_pair", 256), (8, 8), False),
+    (("bwd_dq_wgmma_pair", 256), None, False),
+    (("paged_decode_mha", 96), (8, 8), False),
+    (("paged_decode_mha", 96), None, False),
 ])
 def test_chip_smoke_spill_check_reads_ptxas_reports(spilled, spills, ok):
-    """chip_smoke.py's build phase holds the two-warpgroup entries (K2 and
-    K4 at D 256, K4 at D 96), K2 at D 96 (Q's fragments in registers) and
+    """chip_smoke.py's build phase holds the entries of a head dim's own
+    design (K2, K3 and K4 at D 256, K4 and K1 at D 96), K2 at D 96 (Q's
+    fragments in registers) and
     the float32 K2 and K4 at every head dim to no spill, but
     for F32_SPILLS' instances (a few bytes), from the -Xptxas -v report; a
     report that lacks one of them fails too. No card needed."""
@@ -168,8 +173,10 @@ def test_chip_smoke_spill_check_reads_ptxas_reports(spilled, spills, ok):
                 f"registers, used 3 barriers\n")
 
     dims = t_flash.KERNEL_HEAD_DIMS
-    held = [(n, 256) for n in ("bwd_dkv_wgmma_pair", "flash_fwd_wgmma_pair")]
-    held += [("bwd_dkv_wgmma_rows", 96), ("flash_fwd_wgmma", 96)]
+    held = [(n, 256) for n in ("bwd_dkv_wgmma_pair", "flash_fwd_wgmma_pair",
+                               "bwd_dq_wgmma_pair")]
+    held += [("bwd_dkv_wgmma_rows", 96), ("flash_fwd_wgmma", 96),
+             ("paged_decode_mha", 96)]
     held += [(n, d) for n in ("flash_fwd_f32", "bwd_dkv_f32") for d in dims]
     reports = {"flash_bwd": entry("bwd_dkv_wgmma", 256, 8, 16)}  # may spill
     for name, d in held:
@@ -273,6 +280,99 @@ def test_decode_kernel_matches_plain_on_card(dtype, hq, hkv, page, d):
     assert t_paged.paged_attention_decode.launches == before + 1
     assert torch.isfinite(got).all() and (got[0] == 0).all()
     _close(got, want, **(F32 if dtype == "float32" else BF16))
+
+
+def test_decode_counts_are_one_zeroed_buffer_per_device_and_stream():
+    """The count buffer of K2's split-KV kernel (the last split of a group
+    merges it): one int32 buffer per (device, stream), all zeros when
+    made, kept while it is large enough and replaced by a larger zeroed
+    one otherwise (no card needed)."""
+    saved = dict(t_flash._decode_counts)
+    t_flash._decode_counts.clear()
+    try:
+        cpu = torch.device("cpu")
+        a = t_flash._counts(cpu, 11, 8)
+        assert a.dtype == torch.int32 and a.numel() >= 8
+        assert not a.any()
+        assert t_flash._counts(cpu, 11, 8) is a
+        assert t_flash._counts(cpu, 12, 8) is not a  # another stream
+        big = t_flash._counts(cpu, 11, a.numel() + 1)
+        assert big is not a and big.numel() > a.numel() and not big.any()
+        assert t_flash._counts(cpu, 11, 8) is big
+    finally:
+        t_flash._decode_counts.clear()
+        t_flash._decode_counts.update(saved)
+
+
+def _decode_inputs_on_card(seed, *, hq, hkv, d, page, lengths):
+    """_decode_inputs' pool and queries drawn on the card (bf16): every
+    row's block table as wide as its longest length."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    b = len(lengths)
+    mp = -(-max(lengths) // page)
+    num_pages = 1 + b * mp
+    pool = torch.full((num_pages, hkv, page, 2 * d), float("nan"),
+                      dtype=torch.bfloat16, device="cuda")
+    perm = torch.randperm(num_pages - 1, generator=gen, device="cuda") + 1
+    bt = perm[: b * mp].reshape(b, mp).to(torch.int32)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    k, v = (torch.randn((b, mp * page, hkv, d), generator=gen,
+                        device="cuda").to(torch.bfloat16) for _ in range(2))
+    pos = torch.arange(mp * page, device="cuda").expand(b, -1)
+    t_paged.paged_write(pool, k, v, bt, pos, lens)
+    q = torch.randn((b, hq, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    return q, pool, bt, lens
+
+
+MHA_LENGTHS = [0, 1, 15, 16, 17, 63, 64, 65, 255, 256, 257, 2047]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("page", [8, 16, 32])
+@pytest.mark.parametrize("rep", [1, 2, 4, 8])
+def test_decode_kernel_at_d96_matches_plain_on_card(page, rep):
+    """K1 in bf16 at D 96 (paged_decode_mha: four warps sharing each
+    split) over a pool holding NaN outside the live rows, at lengths 0, 1,
+    a page's and a split's edges +-1 and 2047, against its plain
+    version."""
+    _need_card()
+    hkv = 4
+    q, pool, bt, lens = _decode_inputs_on_card(
+        96 + page + rep, hq=hkv * rep, hkv=hkv, d=96, page=page,
+        lengths=MHA_LENGTHS)
+    before = t_paged.paged_attention_decode.launches
+    got = t_paged.paged_attention_decode(q, pool, bt, lens)
+    want = t_paged.paged_attention_decode_plain(q, pool, bt, lens,
+                                                scale=96 ** -0.5)
+    torch.cuda.synchronize()
+    assert t_paged.paged_attention_decode.launches == before + 1
+    assert torch.isfinite(got).all() and (got[0] == 0).all()
+    _close(got, want, **BF16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("streams", [1, 2])
+def test_decode_kernel_at_d96_repeats_its_bits_on_card(streams):
+    """Launches of K1 at D 96 back to back on one stream, or side by side
+    on two, each give their plain version's output, the same bits each
+    time."""
+    _need_card()
+    runs = [_decode_inputs_on_card(7 + i, hq=32, hkv=32, d=96, page=16,
+                                   lengths=MHA_LENGTHS) for i in range(2)]
+    wants = [t_paged.paged_attention_decode_plain(*r, scale=96 ** -0.5)
+             for r in runs]
+    ss = [torch.cuda.current_stream()] + [torch.cuda.Stream()
+                                          for _ in range(streams - 1)]
+    torch.cuda.synchronize()
+    gots = []
+    for i in range(4):
+        with torch.cuda.stream(ss[i % streams]):
+            gots.append(t_paged.paged_attention_decode(*runs[i % 2]))
+    torch.cuda.synchronize()
+    for i, got in enumerate(gots):
+        _close(got, wants[i % 2], **BF16)
+        assert torch.equal(got, gots[i % 2])
 
 
 def _fwd_inputs(rng, case, d, dt):
